@@ -1,4 +1,4 @@
-"""lis_tpu — a TPU-native sparse iterative-solver framework.
+"""lis_tpu — a JAX sparse iterative-solver framework.
 
 A from-scratch JAX/XLA framework with the capabilities of the Lis
 library (reference: anishida/lis, "Library of Iterative Solvers"): sparse

@@ -748,7 +748,7 @@ int64_t greedy_color(int64_t m, const int64_t* left, const int64_t* right,
 // exactly in half between bit 0 and bit 1, so splitting a 2h-regular
 // graph log2(d) times colors its edges with d colors such that each
 // color class is a perfect matching — the route computation for the
-// mixed-radix Benes shuffle network (TPU-side: pallas lane shuffles).
+// mixed-radix Benes shuffle network (ops/shuffle.py).
 // ---------------------------------------------------------------------------
 int euler_split(int64_t m, const int64_t* u, const int64_t* v,
                 int64_t nu, int64_t nv, uint8_t* bit) {

@@ -35,6 +35,7 @@ def main(argv=None, general: bool = False):
         return 1
 
     lis_tpu.initialize(argv)
+    lis_tpu.config.enable_compile_cache()
     A = read_matrix_market(files[0])
     if general and len(files) > 1:
         B = read_matrix_market(files[1])

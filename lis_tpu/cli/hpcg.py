@@ -33,6 +33,7 @@ def main(argv=None):
         options = "-p ssor -adds true " + options
 
     lis_tpu.initialize(argv)
+    lis_tpu.config.enable_compile_cache()
     if l * m * n > 1_000_000:
         # direct DIA construction: O(27N) memory (the COO assembly path
         # peaks at ~50 bytes/nnz and cannot build very large grids)
@@ -50,6 +51,7 @@ def main(argv=None):
     print(f"number of iterations  = {res.iters}")
     print(f"elapsed time          = {res.time:e} sec.")
     print(f"relative residual     = {res.resid:e}")
+    print(f"true residual         = {res.true_resid:e}")
     err = float(jnp.max(jnp.abs(res.x - 1.0)))
     print(f"max abs error vs ones = {err:e}")
     return 0 if res.status == lis_tpu.LIS_SUCCESS else res.status

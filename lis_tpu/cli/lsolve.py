@@ -36,6 +36,7 @@ def main(argv=None):
     options = " ".join(argv[opt_start:])
 
     lis_tpu.initialize(argv)
+    lis_tpu.config.enable_compile_cache()
     A, b, _ = lis_tpu.lis_input(path)   # MM / Lis / HB auto-detected
 
     n = A.nrows

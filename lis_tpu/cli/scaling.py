@@ -2,11 +2,11 @@
 
 The reference measures multi-rank behavior by re-running spmvtest/test2
 under ``mpirun -np N`` (test/test.sh); here the mesh width takes the place
-of the rank count.  On a real multi-chip slice this reports ICI-scaled
-numbers; on a single host set
-``XLA_FLAGS=--xla_force_host_platform_device_count=N JAX_PLATFORMS=cpu``
-to validate the sharding and collective plan (timings then reflect host
-CPUs, not TPUs).
+of the rank count.  On a multi-GPU host this reports device numbers; with
+``JAX_PLATFORMS=cpu`` the CPU backend is re-initialised with as many
+virtual devices as asked for, to validate the sharding and collective plan
+(timings then reflect host CPUs).  Any other backend with too few devices
+is an error.
 
 Usage:
   python -m lis_tpu.cli.scaling weak  m n iter   [ndev ...] [-problem P]
@@ -93,8 +93,8 @@ def main(argv=None):
     total = len(jax.devices())
     need = max(ndevs) if ndevs else min(total, 8) or 8
     if total < need:
-        # self-provision a virtual CPU mesh (validates sharding; timings
-        # then reflect host CPUs, not TPUs)
+        # a CPU backend self-provisions a virtual mesh (validates
+        # sharding; timings then reflect host CPUs); others raise
         from lis_tpu.parallel.mesh import ensure_devices
         try:
             total = ensure_devices(need)
@@ -121,6 +121,7 @@ def main(argv=None):
         return poisson2d(rows_m, rows_n)
 
     lis_tpu.initialize(argv)
+    lis_tpu.config.enable_compile_cache()
     base = None
     pname = ("uniformly random 8 nnz/row (locality-free)"
              if problem == "random" else "2-D 5-pt Poisson")

@@ -1160,7 +1160,7 @@ def lis_array_qr(n, a, q, r, maxiter=100000, tol=1e-12):
 # ---- full lis.h surface: raw-layout matrix adoption (man lis_matrix_set_*.3)
 # Each set_* records the caller's raw arrays in the reference's own packing
 # (column-major blocks, diagonal-major DIA, slot-major ELL, ...); assemble
-# re-lays them out into this library's TPU-first storage for the declared
+# re-lays them out into this library's own storage for the declared
 # type.  Layouts verified against the reference matvec kernels
 # (src/matvec/lis_matvec_{dia,ell,msr,jad,bsr,vbr}.c).
 

@@ -55,7 +55,7 @@ _cmd_args: list[str] = []
 
 # The reference is a double-precision library (tolerances default to 1e-12);
 # enable x64 at import so the default dtype matches.  Opt out with
-# LIS_TPU_DISABLE_X64=1 (e.g. to force the f32 TPU fast path everywhere).
+# LIS_TPU_DISABLE_X64=1 (f32 everywhere).
 if os.environ.get("LIS_TPU_DISABLE_X64") != "1":
     jax.config.update("jax_enable_x64", True)
 
@@ -63,9 +63,8 @@ if os.environ.get("LIS_TPU_DISABLE_X64") != "1":
 def initialize(argv: list[str] | None = None, enable_x64: bool = True) -> int:
     """Framework init (analogue of lis_initialize, src/system/lis_init.c:121).
 
-    Enables float64 (the reference is a double-precision library; on TPU f64
-    is emulated — the performance path uses f32/bf16 and the double-double
-    module for extended precision) and stores ``argv`` so option objects can
+    Enables float64 (the reference is a double-precision library) and
+    stores ``argv`` so option objects can
     pull ``-i``/``-p``/... flags from the command line like the reference's
     ``lis_solver_set_optionC``.
     """
@@ -76,6 +75,24 @@ def initialize(argv: list[str] | None = None, enable_x64: bool = True) -> int:
         _cmd_args = list(argv)
     _initialized = True
     return LIS_SUCCESS
+
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR`` wins when it is set; otherwise the cache
+    lives at the fixed path ``<checkout>/.jax_cache``, so a later process
+    from the same checkout finds what an earlier one compiled.  Call it
+    before the first compilation: JAX opens the cache once."""
+    path = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(_CHECKOUT, ".jax_cache"))
+    jax.config.update("jax_compilation_cache_dir", path)
+    # keep every program: a solve is many programs of a second or less
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    return path
 
 
 def finalize() -> int:

@@ -4,9 +4,9 @@ The reference keeps a private mini-BLAS/LAPACK for the small dense problems
 that appear inside GMRES (Hessenberg solves), eigensolvers (tridiagonal /
 Hessenberg QR iteration, lis_array_qr src/array/lis_array.c:1136) and the
 VBR/BSR block kernels (lis_array_ge / lis_array_solve :960, cgs/mgs
-:1029,1084).  On TPU these dense problems are tiny (restart×restart), so we
-express them directly in jnp — XLA maps them onto the MXU/VPU — and keep
-them jit-traceable so they can live inside lax loops of the solvers.
+:1029,1084).  These dense problems are tiny (restart×restart), so we
+express them directly in jnp and keep them jit-traceable so they can live
+inside lax loops of the solvers.
 """
 
 from __future__ import annotations
@@ -14,20 +14,23 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# f32 products keep full f32 accuracy: a GPU may otherwise run them in TF32
+_HI = "highest"
+
 
 def matvec(a, x):
     """Dense y = A x (lis_array_matvec)."""
-    return a @ x
+    return jnp.matmul(a, x, precision=_HI)
 
 
 def matvech(a, x):
     """Dense y = Aᴴ x."""
-    return jnp.conj(a).T @ x
+    return jnp.matmul(jnp.conj(a).T, x, precision=_HI)
 
 
 def matmat(a, b):
     """Dense C = A B (lis_array_matmat)."""
-    return a @ b
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def solve(a, b):
@@ -51,9 +54,10 @@ def cgs(a):
     r = jnp.zeros((n, n), dtype=a.dtype)
     for j in range(n):
         v = a[:, j]
-        rj = q.T.conj() @ v          # projections against all previous q's
+        # projections against all previous q's
+        rj = jnp.matmul(q.T.conj(), v, precision=_HI)
         rj = jnp.where(jnp.arange(n) < j, rj, 0.0)
-        v = v - q @ rj
+        v = v - jnp.matmul(q, rj, precision=_HI)
         nrm = jnp.linalg.norm(v)
         q = q.at[:, j].set(v / nrm)
         r = r.at[:, j].set(rj)
@@ -71,7 +75,7 @@ def mgs(a):
         r = r.at[j, j].set(nrm)
         qj = q[:, j] / nrm
         q = q.at[:, j].set(qj)
-        proj = qj.conj() @ q          # row of projections
+        proj = jnp.matmul(qj.conj(), q, precision=_HI)   # projections
         mask = jnp.arange(n) > j
         r = r.at[j, :].set(jnp.where(mask, proj, r[j, :]))
         q = q - jnp.outer(qj, jnp.where(mask, proj, 0.0))
@@ -94,7 +98,7 @@ def qr_eigen(a, maxiter: int = 200, tol: float = 1e-12):
     def body(state):
         t, it, _ = state
         q, r = jnp.linalg.qr(t)
-        t2 = r @ q
+        t2 = jnp.matmul(r, q, precision=_HI)
         off = jnp.sqrt(jnp.sum(jnp.tril(t2, -1) ** 2))
         return t2, it + 1, off
 

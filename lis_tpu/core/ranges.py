@@ -5,7 +5,7 @@ spread over the low ranks (lis_ranges_create, src/system/lis_init.c:405 and
 the LIS_GET_ISIE macro, include/lis.h:1067-1078): shard ``k`` of ``p`` owns
 rows ``[is_k, ie_k)`` where the first ``gn % p`` shards get one extra row.
 
-On TPU the shards are mesh positions rather than MPI ranks; for jit
+Here the shards are mesh positions rather than MPI ranks; for jit
 friendliness the distributed layer pads every shard to the same local size
 (``local_n = ceil(gn / p)``) — the padded partition is what actually lands
 on devices, while these exact ranges describe the logical ownership used by

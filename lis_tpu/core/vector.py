@@ -4,7 +4,7 @@ The reference implements these as local loops followed by MPI_Allreduce for
 the reductions (src/vector/lis_vector_ops.c:58-470).  Here vectors are plain
 ``jnp`` arrays; under ``shard_map`` the same functions are used with an
 ``axis_name`` so the reductions become ``lax.psum`` over the mesh — the
-TPU-native equivalent of Allreduce.  Everything is jit-traceable.
+equivalent of Allreduce.  Everything is jit-traceable.
 
 Vectors carrying double-double precision are handled by lis_tpu.core.ddreal;
 solvers pick the arithmetic backend, these stay plain.

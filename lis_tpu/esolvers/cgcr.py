@@ -98,7 +98,7 @@ def _ecg_run(A, M, x, Ax, p, Ap, maxiter, tol, axis_name=None):
                         [d(p, w), d(p, x), d(p, p)]])
 
         def solve3(Mm, rhs):
-            # Cramer's rule: TPU's LuDecomposition only supports f32/c64
+            # Cramer's rule: a closed form, no LU call inside the loop
             c0 = jnp.cross(Mm[:, 1], Mm[:, 2])
             det = jnp.dot(Mm[:, 0], c0)
             det = jnp.where(det == 0, 1.0, det)
@@ -109,7 +109,7 @@ def _ecg_run(A, M, x, Ax, p, Ap, maxiter, tol, axis_name=None):
 
         def inv_it(_, v3):
             v3 = v3 / jnp.linalg.norm(v3)
-            z3 = solve3(A3, B3 @ v3)
+            z3 = solve3(A3, jnp.matmul(B3, v3, precision="highest"))
             return jnp.where(jnp.all(jnp.isfinite(z3)), z3, v3)
         v3 = _jax.lax.fori_loop(0, 30, inv_it, jnp.ones(3, A3.dtype))
 
@@ -247,7 +247,7 @@ def _egcg_run(A, B, M, x, p, maxiter, tol, axis_name=None):
 
         def inv_it(_, v3):
             v3 = v3 / jnp.linalg.norm(v3)
-            z3 = solve3(A3, B3 @ v3)
+            z3 = solve3(A3, jnp.matmul(B3, v3, precision="highest"))
             return jnp.where(jnp.all(jnp.isfinite(z3)), z3, v3)
         v3 = _jax.lax.fori_loop(0, 30, inv_it, jnp.ones(3, A3.dtype))
 

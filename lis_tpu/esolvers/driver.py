@@ -86,7 +86,7 @@ def gesolve(A, B, options=None, x0=None, **overrides) -> EsolveResult:
         if B is not None:
             B = convert_matrix(B, _STORAGE_BY_ID[opts.estorage], **kw)
     else:
-        # TPU-first default: banded operators iterate in DIA (see
+        # default: the operator iterates in its routed storage (see
         # lis_tpu.solvers.driver.auto_storage)
         from lis_tpu.solvers.driver import auto_storage
         A = auto_storage(A)

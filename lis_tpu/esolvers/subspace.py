@@ -6,7 +6,7 @@ lis_esolver_li.c:149: tridiagonalise then dense QR via lis_array_qr :253,
 then refine each Ritz pair with the inner esolver), lis_eai (Arnoldi,
 lis_esolver_ai.c:151), lis_ecg/lis_ecr (lis_esolver_cg.c:126,780).
 
-TPU design: the Krylov factorisations (Lanczos three-term recurrence /
+Design: the Krylov factorisations (Lanczos three-term recurrence /
 Arnoldi MGS) run as device matvecs + dots; the small (ss+1)² projected
 eigenproblem is solved on host with numpy — identical role to the
 reference's lis_array_qr dense QR iteration.

@@ -2,7 +2,7 @@
 
 The reference's LIS_MATRIX (include/lis.h:621-690) is one struct holding the
 union of all 11 storage formats plus parallel-layout fields; conversion
-rewrites the arrays in place.  The TPU-native design instead gives every
+rewrites the arrays in place.  This design instead gives every
 format its own immutable pytree class: the arrays are jnp leaves (so a
 matrix can be closed over / passed through jit and sharded with
 jax.sharding), and the structural metadata (sizes, block shapes, diagonal

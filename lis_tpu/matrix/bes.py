@@ -1,23 +1,20 @@
-"""BES — block-dense sliding-window slabs: the TPU fast path for GENERAL
-(non-banded) sparsity.
+"""BES — block-dense sliding-window slabs: a gather-free layout for
+GENERAL (non-banded) sparsity.
 
 Reference capability matched: the per-format tuned SpMV kernels serving
 arbitrary matrices (src/matvec/lis_matvec_csr.c:53, unrolled BSR
-lis_matvec_bsr.c:57).  A direct CSR translation is gather-bound on TPU
-(0.06 G nnz/s measured — no hardware gather), so the layout is redesigned
-around what the hardware streams fast:
+lis_matvec_bsr.c:57).  The layout was built for a device without a fast
+general gather: everything the matvec reads is a stream.  On an H100 it
+does not beat CSR (CHANGES.md), so the router never picks it:
 
-- rows in blocks of R = 128 (one full lane tile); block t owns the
+- rows in blocks of R = 128; block t owns the
   x-window [t*R + c0, t*R + c0 + W) which slides AFFINELY with t, so the
   (T, W) window matrix is W/R contiguous shifted reshapes of x — no
   gather anywhere;
 - the block's entries are stored DENSE in a (T, W, R) slab
   (slab[t, w, r] = A[t*R + r, t*R + c0 + w]); the matvec is a
-  broadcast-multiply + sublane reduction that streams the slab at the
-  HBM roofline (measured 735-762 GB/s on v5e = 90-93% of spec; a
-  (T, R, W) lane-reduction layout runs 8x slower — layout chosen by
-  measurement);
-- effective CSR-equivalent bandwidth = roofline / fill-blowup, where
+  broadcast-multiply + reduction that streams the slab;
+- effective CSR-equivalent bandwidth = slab rate / fill-blowup, where
   blowup = W / (avg in-window nnz per row).  Entries outside the window
   fall to a small CSR remainder (standard gather kernel);
 - matrices whose locality is hidden by a bad ordering go through
@@ -34,6 +31,12 @@ import numpy as np
 from lis_tpu.matrix.base import SparseMatrix, matrix_format, static, host
 
 R_DEFAULT = 128
+
+# per-element SpMV costs on an NVIDIA H100 80GB HBM3 at 700 W, f64
+# (CHANGES.md): a slab slot streams at ~1.1-1.5 TB/s (~6 ps for 8 bytes);
+# a CSR entry costs 62-69 ps (gather + segment sum), about 10x a slot
+SLAB_NS_PER_SLOT = 0.006
+GATHER_NS = 0.065
 
 
 @matrix_format("bes")
@@ -82,14 +85,10 @@ class BESMatrix(SparseMatrix):
         disp = index - t_of * stride     # displacement from window base
 
         if W is None or W % R:
-            # cost-model window selection: every slab slot streams at the
-            # HBM roofline (~5 ps/byte) while every out-of-window entry
-            # pays a ~7 ns gather — remainder entries are ~1000x more
-            # expensive than padding, so W grows until the marginal band
-            # of displacements it absorbs stops paying for the extra slab
+            # cost-model window selection: W grows until the marginal
+            # band of displacements it absorbs stops paying for the extra
+            # slab (per-element costs above)
             if len(disp):
-                SLAB_NS_PER_SLOT = 4 / 750e9 * 1e9      # ~0.0053 ns
-                GATHER_NS = 7.0
                 # stride-granular displacement histogram + cumsum: sliding
                 # window coverage in O(nbins) per candidate width
                 dmin = int(disp.min())

@@ -69,7 +69,8 @@ class BSCMatrix(SparseMatrix):
         xp = x if x.shape[0] == padded_c else jnp.pad(x, (0, padded_c - x.shape[0]))
         xb = xp.reshape(self.nc, self.bnc)
         xg = jnp.take(xb, self.bcol_ids, axis=0)            # (bnnz, bnc)
-        yb = jnp.einsum("kij,kj->ki", self.value, xg)
+        yb = jnp.einsum("kij,kj->ki", self.value, xg,
+                        precision="highest")
         y = jnp.zeros((self.nr, self.bnr), dtype=yb.dtype)
         y = y.at[self.bindex].add(yb)
         return y.reshape(-1)[: self.nrows]
@@ -80,7 +81,7 @@ class BSCMatrix(SparseMatrix):
         xp = x if x.shape[0] == padded_r else jnp.pad(x, (0, padded_r - x.shape[0]))
         xb = xp.reshape(self.nr, self.bnr)
         xg = jnp.take(xb, self.bindex, axis=0)              # (bnnz, bnr)
-        yb = jnp.einsum("kij,ki->kj", v, xg)
+        yb = jnp.einsum("kij,ki->kj", v, xg, precision="highest")
         y = jax.ops.segment_sum(yb, self.bcol_ids, num_segments=self.nc,
                                 indices_are_sorted=True)
         return y.reshape(-1)[: self.ncols]

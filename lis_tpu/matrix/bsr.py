@@ -1,9 +1,9 @@
 """BSR — block sparse row.
 
 Reference: src/matrix/lis_matrix_bsr.c with unrolled kernels per block size
-(src/matvec/lis_matvec_bsr.c:57+, all sizes ≤ 4×4).  On TPU the unrolled
-scalar kernels become batched small matmuls (einsum) that XLA maps onto
-the MXU/VPU.  Two layouts:
+(src/matvec/lis_matvec_bsr.c:57+, all sizes ≤ 4×4).  Here the unrolled
+scalar kernels become batched small matmuls (einsum, at
+precision="highest" so f32 never drops to TF32).  Two layouts:
 
 - **windowed slabs** (the fast path, chosen at construction when the block
   structure is band-local): blocks live DENSE in up to `max_windows`
@@ -14,8 +14,7 @@ the MXU/VPU.  Two layouts:
   blocks: displacements {-nx, -1..1, +nx}) each get their own dense
   narrow window.  The x windows are Wb shifted contiguous reshapes (no
   gather anywhere) and each matvec window is one einsum contracting
-  (Wb, bnc) jointly — dense streaming + MXU work instead of the
-  per-block gather that runs ~0.3 GB/s on TPU;
+  (Wb, bnc) jointly — dense streaming instead of a per-block gather;
 - **gather** spill for blocks outside every window (and for matrices
   with no block-band structure at all): batched einsum over gathered x
   blocks + sorted segment-sum, the direct analogue of the reference's
@@ -201,12 +200,14 @@ class BSRMatrix(SparseMatrix):
             xw = self._xwindows(xp.astype(dt) if xp.dtype != dt else xp,
                                 c0, slab.shape[1])
             t = jnp.einsum("twij,twj->ti", slab.astype(dt)
-                           if slab.dtype != dt else slab, xw)
+                           if slab.dtype != dt else slab, xw,
+                           precision="highest")
             y = t if y is None else y + t
         if self.has_spill or y is None:
             xb = xp.reshape(self.nc, self.bnc)
             xg = jnp.take(xb, self.bindex, axis=0)          # (bnnz, bnc)
-            yb = jnp.einsum("kij,kj->ki", self.value, xg)   # block matvecs
+            yb = jnp.einsum("kij,kj->ki", self.value, xg,   # block matvecs
+                            precision="highest")
             yg = jax.ops.segment_sum(yb, self.brow_ids,
                                      num_segments=self.nr,
                                      indices_are_sorted=True)
@@ -226,7 +227,8 @@ class BSRMatrix(SparseMatrix):
             z = jnp.einsum("twij,ti->twj",
                            sl.astype(dt) if sl.dtype != dt else sl,
                            xb.astype(dt)
-                           if xb.dtype != dt else xb)   # (nr, Wb, bnc)
+                           if xb.dtype != dt else xb,   # (nr, Wb, bnc)
+                           precision="highest")
             lo, hi = self._bounds(c0, Wb)
             base = (c0 + lo) * self.bnc
             yo = jnp.zeros((lo + self.nc + hi) * self.bnc, dtype=z.dtype)
@@ -242,7 +244,8 @@ class BSRMatrix(SparseMatrix):
             v = jnp.conj(self.value) if jnp.iscomplexobj(self.value) \
                 else self.value
             xg = jnp.take(xb, self.brow_ids, axis=0)        # (bnnz, bnr)
-            yb = jnp.einsum("kij,ki->kj", v, xg)            # blockᵀ matvecs
+            yb = jnp.einsum("kij,ki->kj", v, xg,            # blockᵀ matvecs
+                            precision="highest")
             yg = jnp.zeros((self.nc, self.bnc), dtype=yb.dtype)
             yg = yg.at[self.bindex].add(yb).reshape(-1)
             y = yg if y is None else y + yg

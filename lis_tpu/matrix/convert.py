@@ -39,9 +39,12 @@ def diag_profile(A):
     nnz = len(value)
     if nnz == 0 or A.nrows != A.ncols:
         return None, nnz
-    rows = np.repeat(np.arange(A.nrows, dtype=np.int64), np.diff(np.asarray(ptr)))
-    offs = np.unique(np.asarray(index).astype(np.int64) - rows)
-    return offs, nnz
+    n = A.nrows
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(np.asarray(ptr)))
+    # entries per offset as counts[off + n]: one O(nnz) bincount, no sort
+    counts = np.bincount(np.asarray(index).astype(np.int64) - rows + n,
+                         minlength=2 * n)
+    return np.flatnonzero(counts) - n, nnz
 
 
 def is_banded(A, max_nnd: int = 512, max_fill: float = 4.0):

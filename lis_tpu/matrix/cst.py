@@ -2,15 +2,14 @@
 
 Reference capability matched: lis_matvec_csr serves *any* CSR at memory
 bandwidth per rank on CPUs (src/matvec/lis_matvec_csr.c:53) because the
-random access to x hits the cache hierarchy.  A TPU has no hardware
-gather OR scatter (~0.14 G elem/s through XLA), so both halves of the
-classic CSR loop are rebuilt as regular data movement:
+random access to x hits the cache hierarchy.  CST rebuilds both halves of
+the classic CSR loop as regular data movement, for devices where a general
+gather or scatter is slow:
 
-- **x side**: columns are chunked by 128 (one vector lane row each);
-  entries live grouped by chunk, so reading ``x[col]`` is ONE pallas
-  lane shuffle against the entry's own chunk row (``ops/shuffle.py``'s
-  kernel, ~14.6 G elem/s) — the chunk row itself is materialised with a
-  plain ``jnp.repeat`` (broadcast, no gather);
+- **x side**: columns are chunked by 128 (one row of 128 values each);
+  entries live grouped by chunk, so reading ``x[col]`` is ONE row-local
+  gather against the entry's own chunk row (``ops/shuffle.py``) — the
+  chunk row itself is materialised with a plain ``jnp.repeat``;
 - **y side**: products are routed from chunk order into ELL row-major
   order by a build-time-fixed Benes shuffle plan (ops/shuffle.py), and
   the row reduction becomes a dense ``reshape(n, K').sum(axis=1)`` —
@@ -19,7 +18,7 @@ classic CSR loop are rebuilt as regular data movement:
   (column chunk, row block) with a fixed per-bucket cap and moving
   between the two orders with one regular XLA transpose of the
   (CB, RBc, beta) bucket grid — the Benes plan then needs only its
-  in-block levels (2 colorings, 5 lane-shuffle passes).
+  in-block levels (2 colorings, 5 passes).
 
 Slot grid invariant: M = n_pad * K' slots serve both layouts; the load
 factor is mean_nnz_row / K' (~0.5), which is exactly the slack the
@@ -180,8 +179,7 @@ class CSTMatrix(SparseMatrix):
         # exact_holes: every pass stays a true per-row permutation, so
         # hole slots (val = 0 at their sources) provably carry zeros to
         # every unreal destination — no dst mask is needed before the
-        # row reduction, and plan.apply_rowsum can fuse the final pass
-        # with the row sums (ops/shuffle.py)
+        # row reduction
         # consistent_passes: never skip identity levels, so sibling
         # builds (one per shard) share one pass structure and stack
         plan = plan_shuffle(perm, digits=block_digits(M, L),
@@ -191,7 +189,7 @@ class CSTMatrix(SparseMatrix):
         val = np.zeros(M, dtype=value.dtype)
         val[src] = v_
         # lane ids are < 128: uint8 quarters the select-phase index
-        # traffic (kernels upcast in registers)
+        # traffic
         li = np.zeros(M, dtype=np.uint8)
         li[src] = (c_ & 127).astype(np.uint8)
         rf = np.full(M, n, dtype=np.int32)
@@ -235,77 +233,9 @@ class CSTMatrix(SparseMatrix):
     def fill_blowup(self) -> float:
         return self.val.size / max(self.nnz, 1)
 
-    def _front_tile(self):
-        """Chunk tile G for ``_fused_front``, or None when no Mosaic-legal
-        tile exists (matvec then uses the unfused select/multiply chain).
-        Every block's second-minor dim is G: legal only as a multiple of
-        8 (f32) or the full dim CB."""
-        if self.beta % 128:
-            return None             # in-kernel repeat needs beta >= 128
-        CB = self.n_pad // 128
-        G = max(1, min(CB, (1 << 16) // self.beta))
-        while CB % G:
-            G //= 2
-        if G % 8 and G != CB:
-            # widen past the element-count cap if VMEM allows: the f32
-            # blocks are G*beta*4 B each (val/out/xrep), 512 KB at the
-            # grid maximum beta = 16384
-            if CB % 8 == 0 and 8 * self.beta * 4 <= (1 << 21):
-                G = 8
-            else:
-                return None
-        return G
-
-    def _fused_front(self, xp):
-        """select * val written directly in the (RBc, CB, beta)
-        transposed bucket order — ONE kernel replacing the repeat /
-        lane-shuffle / multiply / XLA-transpose chain (the bucket
-        transpose costs nothing: it is the output BlockSpec index map).
-        ~9 B/slot of HBM traffic vs ~33 unfused (measured 0.80 ms ->
-        see BENCH.md, v5e M=2^24).  Callers gate on ``_front_tile``."""
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        CB = self.n_pad // 128
-        RBc, beta = self.RBc, self.beta
-        G = self._front_tile()
-        assert G is not None, "caller must gate fusion on _front_tile"
-        dn = jax.lax.GatherDimensionNumbers(
-            offset_dims=(), collapsed_slice_dims=(1,), start_index_map=(1,),
-            operand_batching_dims=(0,), start_indices_batching_dims=(0,))
-
-        def kernel(x_ref, i_ref, v_ref, o_ref):
-            gb = G * beta // 128
-            xrep = jnp.repeat(x_ref[:], beta // 128, axis=0)  # (gb, 128)
-            ii = i_ref[:].reshape(gb, 128).astype(jnp.int32)
-            g = jax.lax.gather(
-                xrep, ii[..., None], dn, (1, 1),
-                mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS)
-            o_ref[:] = (g.reshape(G, beta) * v_ref[:]).reshape(1, G, beta)
-
-        # lidx/val ride as 2-D (CB, RBc*beta) so every block is a legal
-        # (G, beta) tile; the r grid coordinate picks the beta-column
-        # strip, and the OUTPUT index map performs the bucket transpose
-        with jax.enable_x64(False):
-            out = pl.pallas_call(
-                kernel,
-                grid=(CB // G, RBc),
-                in_specs=[pl.BlockSpec((G, 128), lambda c, r: (c, 0),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((G, beta), lambda c, r: (c, r),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((G, beta), lambda c, r: (c, r),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((1, G, beta), lambda c, r: (r, c, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((RBc, CB, beta), xp.dtype),
-            )(xp.reshape(CB, 128),
-              self.lidx.reshape(CB, RBc * beta),
-              self.val.reshape(CB, RBc * beta))
-        return out.reshape(-1)
-
     def _select(self, x):
         """Entry-wise x values: chunk rows broadcast by repeat (regular)
-        then ONE lane shuffle per 32-bit plane — no gather."""
+        then ONE row-local gather."""
         CB = self.n_pad // 128
         xp = jnp.pad(x, (0, self.n_pad - x.shape[0]))
         # src layout: chunk cb occupies M/CB = Kp*128 consecutive slots
@@ -314,17 +244,11 @@ class CSTMatrix(SparseMatrix):
 
     def matvec(self, x):
         dt = jnp.result_type(x.dtype, self.val.dtype)
-        if (dt == jnp.float32 and jax.default_backend() != "cpu"
-                and self._front_tile() is not None):
-            xp = jnp.pad(x.astype(dt) if x.dtype != dt else x,
-                         (0, self.n_pad - x.shape[0]))
-            t = self._fused_front(xp)
-        else:
-            sel = self._select(x.astype(dt) if x.dtype != dt else x)
-            contrib = sel * self.val.astype(dt)
-            CB = self.n_pad // 128
-            t = contrib.reshape(CB, self.RBc, self.beta)
-            t = jnp.swapaxes(t, 0, 1).reshape(-1)
+        sel = self._select(x.astype(dt) if x.dtype != dt else x)
+        contrib = sel * self.val.astype(dt)
+        CB = self.n_pad // 128
+        t = contrib.reshape(CB, self.RBc, self.beta)
+        t = jnp.swapaxes(t, 0, 1).reshape(-1)
         # exact-holes plan: unreal slots carry zeros, so the row sums
         # need no destination mask (see from_csr_arrays)
         y = self.plan.apply_rowsum(t, self.Kp)[: self.nrows]
@@ -341,7 +265,7 @@ class CSTMatrix(SparseMatrix):
             return self.at.matvec(x)
         # no transpose grid (auto_storage skips it for solvers that
         # apply A^H at most once per solve, halving the build): one
-        # correct XLA scatter-add — slow (~0.1 G elem/s) but paid once.
+        # correct XLA scatter-add, paid at most once per solve.
         # bicg/bicr get a transpose grid from the routing (need_at).
         conj = (jnp.conj if jnp.iscomplexobj(self.val) else (lambda a: a))
         xr = jnp.take(jnp.pad(conj(x), (0, 1)),

@@ -3,10 +3,10 @@
 Reference: src/matrix/lis_matrix_dia.c, kernel src/matvec/lis_matvec_dia.c:50.
 For banded/stencil matrices (all of the reference's spmvtest problems) the
 matrix is a handful of dense diagonals; SpMV needs NO gather at all: each
-diagonal contributes ``value[k] * shift(x, off_k)``, a pure VPU multiply-add
-over contiguous memory.  The diagonal offsets are static aux data, so the
+diagonal contributes ``value[k] * shift(x, off_k)``, a multiply-add over
+contiguous memory.  The diagonal offsets are static aux data, so the
 shifts are compile-time slices — this is the flagship stream format
-(XLA-fused; measured at the HBM roofline, see BENCH.md).
+(XLA-fused; 3000 GB/s csr-equivalent on an H100 at 216^3, CHANGES.md).
 
 Out-of-range positions hold zeros in ``value`` so no runtime masks needed.
 """
@@ -26,8 +26,8 @@ from lis_tpu.matrix.base import SparseMatrix, matrix_format, static, host
 class DIAMatrix(SparseMatrix):
     # per-diagonal arrays: value[k][i] = A[i, i+off_k].  Stored as a TUPLE
     # of (n,) leaves, not one (nnd, n) array: separate buffers let XLA fuse
-    # the whole shift-FMA chain when the matrix is a jit ARGUMENT — one
-    # (nnd, n) argument array measured 8.5x slower (1.05 vs 0.13 ms at 96³)
+    # the whole shift-FMA chain when the matrix is a jit ARGUMENT, which
+    # one (nnd, n) argument array defeats
     value: tuple
     nrows: int = static()
     ncols: int = static()
@@ -39,17 +39,18 @@ class DIAMatrix(SparseMatrix):
         ptr, index, value = host(ptr), host(index), host(value)
         n = shape[0]
         rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
-        offs = index.astype(np.int64) - rows
-        uoffs = np.unique(offs)
+        shifted = index.astype(np.int64) - rows + n      # offset + n >= 0
+        present = np.bincount(shifted, minlength=n + shape[1]) > 0
+        uoffs = np.flatnonzero(present) - n
+        slot = np.cumsum(present) - 1                    # offset -> row of dval
         dval = np.zeros((len(uoffs), n), dtype=value.dtype)
-        kidx = np.searchsorted(uoffs, offs)
-        dval[kidx, rows] = value
+        dval[slot[shifted], rows] = value
         out = cls(value=tuple(jnp.asarray(dval[k])
                               for k in range(len(uoffs))),
                   nrows=int(n), ncols=int(shape[1]), nnz=int(len(value)),
                   offsets=tuple(int(o) for o in uoffs))
-        # host CSR cache (see csr.py): avoids a 100MB+ relay pull when a
-        # preconditioner (SA-AMG, ILU) re-reads the converted operator
+        # host CSR cache (see csr.py): avoids a device-to-host pull when
+        # a preconditioner (SA-AMG, ILU) re-reads the converted operator
         object.__setattr__(out, "_host_csr",
                            (np.asarray(ptr, np.int32),
                             np.asarray(index, np.int32), value))
@@ -135,7 +136,7 @@ class DIAMatrix(SparseMatrix):
         dt = jnp.result_type(v[0].dtype, x.dtype) if v else x.dtype
         if out_len == n:
             # (Aᴴx)[j] = Σ_k v[k][j-off_k]·x[j-off_k]: pure shifted streams
-            # (the serialized update-slice chain below is ~5x slower)
+            # (the serialized update-slice chain below does not fuse)
             xp = jnp.pad(x, (pad, pad))
             y = jnp.zeros(n, dtype=dt)
             for k, off in enumerate(self.offsets):

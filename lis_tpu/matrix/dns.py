@@ -1,7 +1,7 @@
 """DNS — dense storage (reference: src/matrix/lis_matrix_dns.c).
 
-The one format where the TPU wins outright: SpMV is a dense matvec straight
-onto the MXU.  Stored row-major (n, m); the reference stores column-major,
+SpMV is one dense matvec (precision="highest": f32 never drops to TF32).
+Stored row-major (n, m); the reference stores column-major,
 an irrelevant distinction behind the L3 interface.
 """
 
@@ -44,12 +44,14 @@ class DNSMatrix(SparseMatrix):
     def to_dense(self):
         return host(self.value)
 
+    # precision="highest": an f32 product must not drop to TF32
     def matvec(self, x):
-        return self.value @ x
+        return jnp.matmul(self.value, x, precision="highest")
 
     def matvech(self, x):
-        return jnp.conj(self.value).T @ x if jnp.iscomplexobj(self.value) \
-            else self.value.T @ x
+        a = jnp.conj(self.value) if jnp.iscomplexobj(self.value) \
+            else self.value
+        return jnp.matmul(a.T, x, precision="highest")
 
     def get_diagonal(self):
         return jnp.diagonal(self.value)

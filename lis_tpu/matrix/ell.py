@@ -1,9 +1,8 @@
-"""ELL (ELLPACK) format — the TPU-friendliest general sparse layout.
+"""ELL (ELLPACK) format — the fixed-width general sparse layout.
 
 Reference: src/matrix/lis_matrix_ell.c and kernel src/matvec/lis_matvec_ell.c:50.
 Rows padded to ``maxnzr`` entries give a dense (n, maxnzr) value/index pair:
-SpMV is one gather + one row reduction with fully static shapes — exactly
-what the VPU wants.  Padding uses column 0 with value 0 so no masking is
+SpMV is one gather + one row reduction with fully static shapes.  Padding uses column 0 with value 0 so no masking is
 needed at run time.
 """
 

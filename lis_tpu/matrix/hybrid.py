@@ -1,11 +1,10 @@
-"""Hybrid DIA + remainder storage ("HDI") — TPU-first extension.
+"""Hybrid DIA + remainder storage ("HDI") — an extension.
 
 Not a reference format: the reference's closest precedent is MSR (diagonal
 split off, src/matrix/lis_matrix_msr.c) and the classic GPU "HYB"
-(ELL+COO) layout.  On TPU the motivation is extreme: diagonal streams run
-at the HBM roofline while random gathers run at <1 GB/s (BENCH.md), so a
-matrix that is MOSTLY banded with a few stragglers should pay the gather
-price only for the stragglers.  auto_storage routes here when the strict
+(ELL+COO) layout.  Diagonal streams run about 11x CSR's gather on an H100
+(CHANGES.md), so a matrix that is MOSTLY banded with a few stragglers
+should pay the gather price only for the stragglers.  auto_storage routes here when the strict
 DIA fill guard fails but the dominant diagonals cover most of the nnz.
 """
 

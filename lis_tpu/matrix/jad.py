@@ -2,8 +2,8 @@
 
 Reference: src/matrix/lis_matrix_jad.c, kernel src/matvec/lis_matvec_jad.c:50.
 JAD permutes rows by descending nonzero count then stores "jagged columns";
-the reference targets vector machines (NEC pragmas) — the same motivation as
-the TPU VPU.  The TPU-native layout keeps the row permutation but pads each
+the reference targets vector machines (NEC pragmas).  This layout keeps the
+row permutation but pads each
 jagged column to n (index 0 / value 0), i.e. ELL over permuted rows stored
 column-major: each jagged diagonal is one contiguous gather + fma, and the
 leading (long) diagonals dominate where rows are dense.

@@ -1,8 +1,8 @@
 """Bandwidth-reducing reordering (reverse Cuthill-McKee) + the reordered
 operator wrapper.
 
-The reference leaves ordering to the user; on TPU ordering IS the
-performance model — the gather-free formats (DIA, HDI, BES slabs) all
+The reference leaves ordering to the user; here ordering feeds the
+storage router — the stream formats (DIA, HDI, BES slabs) all
 exploit locality of ``col - row``, and RCM is the standard way to expose
 it on unstructured (SuiteSparse-class) matrices.  ``-reorder rcm`` makes
 the solver driver solve the symmetrically permuted system

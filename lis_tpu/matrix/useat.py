@@ -2,7 +2,7 @@
 
 Reference: the BiCG family optionally materialises Aᵀ so the transpose
 matvec runs the fast row-oriented kernel instead of the scatter direction
-(LIS_USE_AT_TYPE, src/solver/lis_solver.c:163-166,836-843).  On TPU the
+(LIS_USE_AT_TYPE, src/solver/lis_solver.c:163-166,836-843).  Here the
 scatter-add matvech is likewise slower than the sorted segment-sum, so the
 same trade applies: memory for speed.
 """

@@ -3,7 +3,7 @@
 Reference: src/matrix/lis_matrix_vbr.c.  VBR partitions rows and columns into
 variable-sized blocks; the reference itself gives it no MPI support (skipped
 when nprocs>1, test/spmvtest1.c:201) and no specialised fast kernels.  Ragged
-blocks fundamentally do not map to TPU tiling, so this class keeps the VBR
+blocks do not map to fixed-shape tiles, so this class keeps the VBR
 structural metadata (row/col partition + block pointers, matching the
 reference's struct fields lis.h:641-657) for format fidelity, while compute
 routes through an internal CSR view — same arrays, fixed shapes.
@@ -69,7 +69,7 @@ class VBRMatrix(SparseMatrix):
     bptr: tuple = static()         # block-row pointers into bindex
     bindex: tuple = static()       # block-column index per stored block
     fast: object = None            # uniform partition: a BSRMatrix of the
-                                   # SAME matrix — matvecs run its MXU
+                                   # SAME matrix — matvecs run its
                                    # windowed slabs instead of gathers
 
     def _rebuild_kwargs(self):
@@ -109,7 +109,7 @@ class VBRMatrix(SparseMatrix):
         bptr = np.cumsum(bptr)
         row_ids = rows.astype(np.int32)
         # uniform partitions make the matrix EXACTLY a BSR: compute
-        # matvecs through the BSR windowed-slab kernels (MXU einsums)
+        # matvecs through the BSR windowed-slab kernels (einsums)
         # instead of the scalar gather view — the VBR identity (block
         # ILU partition, conversions) is untouched.  Deliberate
         # trade-off: the CSR view stays resident next to the BSR slabs

@@ -1,11 +1,9 @@
-"""Fixed-permutation shuffle engine — gather-free data movement on TPU.
+"""Fixed-permutation shuffle engine: an arbitrary permutation as passes
+of within-row gathers.
 
-TPU has no hardware gather/scatter: XLA moves arbitrary elements at
-~0.11-0.14 G elem/s (measured, BENCH.md), ~1000x off roofline.  But the
-Mosaic ``tpu.dynamic_gather`` lane shuffle — permuting WITHIN each
-128-lane row of a (R, 128) array — runs at ~14.6 G elem/s.  This module
-realises an ARBITRARY (build-time-fixed) permutation of M = 2^t elements
-as a mixed-radix Benes network whose every stage is such a lane shuffle:
+The engine realises an ARBITRARY (build-time-fixed) permutation of
+M = 2^t elements as a mixed-radix Benes network whose every stage
+permutes elements only WITHIN each 128-wide row of an (M/128, 128) view:
 
 - factor M into digits d_1 ... d_k (powers of two, <= 128);
 - a Benes network permutes digit 1, digit 2, ..., digit k, ..., digit 2,
@@ -15,17 +13,13 @@ as a mixed-radix Benes network whose every stage is such a lane shuffle:
   classic recursive edge coloring of d-regular bipartite multigraphs,
   computed at build time by log2(d) Euler-circuit splits per level
   (native C++ ``euler_split``; lis_native.cpp);
-- each pass is applied as reshape/transpose (XLA, bandwidth-bound) plus
-  ONE pallas lane-shuffle over the (M/128, 128) view.
+- each pass is applied as reshape/transpose plus one row-local
+  ``take_along_axis`` over the (M/128, 128) view.
 
-This is the capability the reference gets from hardware caches: its CSR
-SpMV serves any sparsity at memory bandwidth per rank
-(src/matvec/lis_matvec_csr.c:53) because x random-access hits L2/L3.
-The shuffle engine is the TPU-native replacement for the scatter/gather
-half of that story (matrix/css.py routes select-phase products into
-row-major order with it, making locality-free SpMV scatter-free).
-
-Wide dtypes (f64/complex) are shuffled as bitcast 32-bit planes.
+It was built for a device without a fast general gather: every pass is
+regular data movement.  On an H100 the general gather is a hardware load
+and CST, the engine's user, loses to CSR (CHANGES.md), so the storage
+router (solvers/driver.py) does not pick it.
 """
 
 from __future__ import annotations
@@ -245,7 +239,7 @@ def _pass_idx(pos_before, pos_after, d, s, M, exact_holes=False):
     g = (pos // (d*s)) * s + pos % s is invariant.  Physically the array
     is viewed as (M/(d*s), d, s) -> transposed to (.., s, d) -> rows of
     128 lanes holding 128/d consecutive groups; idx is the within-row
-    gather for the pallas lane shuffle.
+    gather of the pass.
 
     Slots not occupied by real elements default to reading their own
     lane (may duplicate a real value): cheap, but the plan's output is
@@ -347,357 +341,14 @@ def _route(src: np.ndarray, dst: np.ndarray, M: int, digits=None,
 # Device application
 # ---------------------------------------------------------------------------
 
-def _lane_shuffle32(x, idx):
-    """Permute within each 128-lane row: out[r, l] = x[r, idx[r, l]].
-    Pallas (Mosaic tpu.dynamic_gather); CPU/interpret fallback is XLA
-    take_along_axis (tests on the virtual CPU mesh)."""
-    R = x.shape[0]
-    # R < 32 falls below the 8-bit (32, 128) min tile of the uint8 index
-    # operand; such rows are trivially cheap anyway — XLA path
-    if jax.default_backend() == "cpu" or R < 32:
-        return jnp.take_along_axis(x, idx.astype(jnp.int32), axis=1)
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    TS = min(R, 512)
-    # lax.gather spelled in the exact form Mosaic lowers to
-    # tpu.dynamic_gather (int32 indices — take_along_axis would promote
-    # to int64 under jax_enable_x64 and fail Mosaic)
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(), collapsed_slice_dims=(1,), start_index_map=(1,),
-        operand_batching_dims=(0,), start_indices_batching_dims=(0,))
-
-    def kernel(x_ref, i_ref, o_ref):
-        ii = i_ref[:]
-        if ii.dtype != jnp.int32:
-            ii = ii.astype(jnp.int32)          # uint8 storage, i32 gather
-        o_ref[:] = jax.lax.gather(
-            x_ref[:], ii[..., None], dn, (1, 1),
-            mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS)
-
-    # under jax_enable_x64 the grid/index arithmetic traces as i64,
-    # which Mosaic refuses; every operand here is 32-bit by now
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            grid=(R // TS,),
-            in_specs=[pl.BlockSpec((TS, 128), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-                      pl.BlockSpec((TS, 128), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((TS, 128), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-        )(x, idx)
-
-
 def _lane_shuffle(x, idx):
-    """Dtype-generic row shuffle.  Complex rides as real/imag planes
-    (each itself dtype-generic); f64 on TPU uses the exact XLA gather —
-    the 32-bit-plane bitcast lowers through u64, which the TPU X64
-    rewriter rejects (caught by experiments/chip_smoke.py), and f64 is
-    emulated there anyway.  CPU keeps the exact bitcast planes."""
-    if x.dtype.itemsize == 4:
-        return _lane_shuffle32(x, idx)
-    if x.dtype.itemsize < 4:
-        return _lane_shuffle32(x.astype(jnp.float32), idx).astype(x.dtype)
-    if jnp.issubdtype(x.dtype, jnp.complexfloating):
-        re = _lane_shuffle(jnp.real(x), idx)
-        im = _lane_shuffle(jnp.imag(x), idx)
-        return jax.lax.complex(re, im).astype(x.dtype)
-    if jax.default_backend() != "cpu":
-        return jnp.take_along_axis(x, idx.astype(jnp.int32), axis=1)
-    u = jax.lax.bitcast_convert_type(x, jnp.uint32)   # (R, 128, n32)
-    planes = [_lane_shuffle32(u[..., p], idx)
-              for p in range(u.shape[-1])]
-    return jax.lax.bitcast_convert_type(jnp.stack(planes, axis=-1),
-                                        x.dtype)
-
-
-_FUSE_W = 1024    # lane tile of the fused pass (f32 VMEM: ~1.1 MB/buf)
-
-
-def _fused_pass32(x, idx, d, s, M):
-    """One whole Benes pass in ONE pallas kernel: strided (d, W) block
-    read, in-register transpose, lane gather, transpose back, strided
-    write — replacing the legacy reshape/XLA-transpose/shuffle/XLA-
-    transpose chain (24 B/slot of HBM traffic -> 9 B/slot with uint8
-    indices; measured 2.3x per pass on v5e, experiments/_r4_pass_micro2).
-    Requires d == 128 and a 4-byte dtype; input/output are flat (M,)
-    in the UN-transposed (pre, d, s) layout."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    pre = M // (d * s)
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(), collapsed_slice_dims=(1,), start_index_map=(1,),
-        operand_batching_dims=(0,), start_indices_batching_dims=(0,))
-
-    def body(xt, ii):
-        if ii.dtype != jnp.int32:
-            ii = ii.astype(jnp.int32)
-        return jax.lax.gather(
-            xt, ii[..., None], dn, (1, 1),
-            mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS)
-
-    xv = x.reshape(pre, d, s)
-    iv = idx.reshape(M // 128, 128)
-    with jax.enable_x64(False):
-        if s >= _FUSE_W:
-            W = _FUSE_W if s % _FUSE_W == 0 else s
-
-            def kernel(x_ref, i_ref, o_ref):
-                o_ref[0] = body(x_ref[0].T, i_ref[:]).T
-
-            out = pl.pallas_call(
-                kernel,
-                grid=(pre, s // W),
-                in_specs=[pl.BlockSpec((1, d, W), lambda p, q: (p, 0, q),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((W, 128),
-                                       lambda p, q: (p * (s // W) + q, 0),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((1, d, W), lambda p, q: (p, 0, q),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((pre, d, s), x.dtype),
-            )(xv, iv)
-        else:
-            # short stride: batch B consecutive (d, s) tiles per block
-            B = max(min(_FUSE_W // s, pre), 1)
-            while pre % B:
-                B //= 2
-
-            def kernel(x_ref, i_ref, o_ref):
-                g = body(jnp.swapaxes(x_ref[:], 1, 2).reshape(-1, 128),
-                         i_ref[:])
-                o_ref[:] = jnp.swapaxes(g.reshape(B, s, d), 1, 2)
-
-            out = pl.pallas_call(
-                kernel,
-                grid=(pre // B,),
-                in_specs=[pl.BlockSpec((B, d, s), lambda p: (p, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((B * s, 128), lambda p: (p, 0),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((B, d, s), lambda p: (p, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((pre, d, s), x.dtype),
-            )(xv, iv)
-    return out.reshape(-1)
-
-
-_ROWSUM_WMAX = 8192   # max lane tile of the fused rowsum pass (f32 input
-                      # block = d*W*4 B; 8192 -> 4 MB, double-buffered 8 MB)
-
-
-def _rowsum_tile(s, Kp):
-    """Lane tile W for ``_fused_pass_rowsum32``'s long-stride branch, or
-    None when no Mosaic-legal tile exists (callers fall back to the
-    unfused passes).  Legality: the OUTPUT block's minor dim is W//Kp,
-    which Mosaic accepts only as a multiple of 128 or as the full dim
-    s//Kp.  All sizes here are powers of two."""
-    if s < _FUSE_W:
-        return s                  # short-stride branch: full-dim blocks
-    if s % _FUSE_W == 0 and (_FUSE_W // Kp) % 128 == 0:
-        return _FUSE_W            # Kp <= 8
-    W = 128 * Kp                  # W//Kp == 128 by construction
-    if s % W == 0 and W <= _ROWSUM_WMAX:
-        return W
-    if s <= _ROWSUM_WMAX:
-        return s                  # single tile spans the stride: full dim
-    return None
-
-
-def _fused_pass_rowsum32(x, idx, d, s, M, Kp):
-    """Final Benes pass + ELL row reduction in ONE kernel: the routed
-    values never hit HBM — each (W, 128) gathered tile is summed over
-    Kp-groups in registers and only the (W/Kp, 128) row sums are
-    written.  Output flat order IS y row-major: slot F = p*d*s + a*s + w
-    has row F//Kp = p*(d*s/Kp) + a*(s/Kp) + w//Kp (Kp | s).  Replaces
-    pass-write + mask-mul + (n_pad, Kp) minor-dim reshape-sum (measured
-    1.78 ms of the 3.75 ms CST matvec at M=2^24 on v5e).  Requires an
-    exact-holes plan (holes carry zeros) so no mask operand is needed."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    pre = M // (d * s)
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(), collapsed_slice_dims=(1,), start_index_map=(1,),
-        operand_batching_dims=(0,), start_indices_batching_dims=(0,))
-
-    def body(xt, ii):
-        if ii.dtype != jnp.int32:
-            ii = ii.astype(jnp.int32)
-        return jax.lax.gather(
-            xt, ii[..., None], dn, (1, 1),
-            mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS)
-
-    xv = x.reshape(pre, d, s)
-    iv = idx.reshape(M // 128, 128)
-    with jax.enable_x64(False):
-        if s >= _FUSE_W:
-            W = _rowsum_tile(s, Kp)
-            assert W is not None and s % W == 0, \
-                "caller must gate fusion on _rowsum_tile"
-
-            def kernel(x_ref, i_ref, o_ref):
-                g = body(x_ref[0].T, i_ref[:])          # (W, 128)
-                o_ref[0] = g.reshape(W // Kp, Kp, 128).sum(axis=1).T
-
-            out = pl.pallas_call(
-                kernel,
-                grid=(pre, s // W),
-                in_specs=[pl.BlockSpec((1, d, W), lambda p, q: (p, 0, q),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((W, 128),
-                                       lambda p, q: (p * (s // W) + q, 0),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((1, d, W // Kp),
-                                       lambda p, q: (p, 0, q),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((pre, d, s // Kp), x.dtype),
-            )(xv, iv)
-        else:
-            B = max(min(_FUSE_W // s, pre), 1)
-            while pre % B:
-                B //= 2
-
-            def kernel(x_ref, i_ref, o_ref):
-                g = body(jnp.swapaxes(x_ref[:], 1, 2).reshape(-1, 128),
-                         i_ref[:])                       # (B*s, 128)
-                r = g.reshape(B, s // Kp, Kp, 128).sum(axis=2)
-                o_ref[:] = jnp.swapaxes(r, 1, 2)
-
-            out = pl.pallas_call(
-                kernel,
-                grid=(pre // B,),
-                in_specs=[pl.BlockSpec((B, d, s), lambda p: (p, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                          pl.BlockSpec((B * s, 128), lambda p: (p, 0),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((B, d, s // Kp),
-                                       lambda p: (p, 0, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((pre, d, s // Kp), x.dtype),
-            )(xv, iv)
-    return out.reshape(-1)
-
-
-def _fused_small32(x, idxs, ss, M, Kp=None, interpret=False):
-    """Apply a CONSECUTIVE RUN of (d=128, s<=128) Benes passes in ONE
-    pallas kernel.  Any such pass permutes elements only within aligned
-    16384-slot tiles: viewing the flat array as (M/16384, 128, 128)
-    tiles T[b, a, w] (slot = b*16384 + a*128 + w), a pass with s == 1
-    permutes w within each (b, a) row (a plain lane gather) and a pass
-    with s == 128 permutes a within each (b, w) column (transpose, lane
-    gather, transpose back).  The CST plan's three inner passes
-    (s=128, s=1, s=128) therefore become one kernel — each fused pass
-    saves a full HBM read+write of the array (~8 B/slot).
-
-    ``Kp`` (power of two <= 128) additionally fuses the trailing ELL row
-    reduction: after the last pass, slot F = b*16384 + a*128 + w has row
-    F//Kp, so rows are w-groups of Kp within each (b, a) row and the
-    kernel writes only the (128, 128/Kp) row sums per tile.  Only valid
-    for exact-holes plans (hole slots provably carry zeros).
-
-    ``interpret`` runs the kernel in pallas interpret mode (CPU
-    validation path used by the test suite)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    MB = M // 16384
-    B = max(1, min(MB, 8))
-    while MB % B:
-        B //= 2
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(), collapsed_slice_dims=(1,), start_index_map=(1,),
-        operand_batching_dims=(0,), start_indices_batching_dims=(0,))
-
-    def gather_rows(t2, ii):
-        if ii.dtype != jnp.int32:
-            ii = ii.astype(jnp.int32)
-        return jax.lax.gather(
-            t2, ii[..., None], dn, (1, 1),
-            mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS)
-
-    def kernel(*refs):
-        x_ref = refs[0]
-        o_ref = refs[-1]
-        T = x_ref[:]                              # (B, 128, 128) [a, w]
-        for s, i_ref in zip(ss, refs[1:-1]):
-            ii = i_ref[:].reshape(B * 128, 128)
-            if s == 1:
-                # row shuffle: idx rows indexed by (b, a)
-                T = gather_rows(T.reshape(B * 128, 128), ii)
-                T = T.reshape(B, 128, 128)
-            else:
-                # column shuffle: idx rows indexed by (b, w)
-                Tt = jnp.swapaxes(T, 1, 2).reshape(B * 128, 128)
-                Tt = gather_rows(Tt, ii)
-                T = jnp.swapaxes(Tt.reshape(B, 128, 128), 1, 2)
-        if Kp is None:
-            o_ref[:] = T
-        else:
-            # reduce w-groups of Kp: a reshape splitting the LANE dim is
-            # an unsupported Mosaic shape cast (chip-smoke catch), so
-            # contract against a 0/1 selection matrix on the MXU instead
-            S = (jax.lax.broadcasted_iota(jnp.int32, (128, 128 // Kp), 0)
-                 // Kp
-                 == jax.lax.broadcasted_iota(jnp.int32, (128, 128 // Kp),
-                                             1)).astype(T.dtype)
-            r = jax.lax.dot_general(
-                T.reshape(B * 128, 128), S, (((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=T.dtype)
-            o_ref[:] = r.reshape(B, 128, 128 // Kp)
-
-    W_out = 128 if Kp is None else 128 // Kp
-    with jax.enable_x64(False):
-        out = pl.pallas_call(
-            kernel,
-            grid=(MB // B,),
-            in_specs=[pl.BlockSpec((B, 128, 128), lambda p: (p, 0, 0),
-                                   memory_space=pltpu.VMEM)]
-            + [pl.BlockSpec((B, 128, 128), lambda p: (p, 0, 0),
-                            memory_space=pltpu.VMEM)] * len(ss),
-            out_specs=pl.BlockSpec((B, 128, W_out), lambda p: (p, 0, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((MB, 128, W_out), x.dtype),
-            interpret=interpret,
-        )(x.reshape(MB, 128, 128),
-          *[ii.reshape(MB, 128, 128) for ii in idxs])
-    return out.reshape(-1)
-
-
-def _small_run(meta):
-    """(start, stop) of the first maximal run of consecutive passes with
-    d == 128 and s <= 128 (the 16384-tile-local passes _fused_small32
-    can fuse), or None."""
-    i = 0
-    n = len(meta)
-    while i < n:
-        if meta[i][0] == 128 and meta[i][1] <= 128:
-            j = i
-            while j < n and meta[j][0] == 128 and meta[j][1] <= 128:
-                j += 1
-            if j - i >= 2:
-                return i, j
-            i = j
-        else:
-            i += 1
-    return None
+    """Permute within each 128-wide row: out[r, l] = x[r, idx[r, l]].
+    One XLA gather; exact for every dtype."""
+    return jnp.take_along_axis(x, idx.astype(jnp.int32), axis=1)
 
 
 def _apply_pass(v, idx, d, s, M):
     """Apply one Benes pass to the flat (M,) vector ``v``."""
-    if (d == 128 and s > 1 and jax.default_backend() != "cpu"
-            and (s % 128 == 0 or s >= _FUSE_W)):
-        if v.dtype.itemsize == 4:
-            return _fused_pass32(v, idx, d, s, M)
-        if jnp.issubdtype(v.dtype, jnp.complexfloating):
-            # complex as real/imag planes (the 64-bit bitcast route is
-            # rejected by the TPU X64 rewriter; chip_smoke catch)
-            re = _apply_pass(jnp.real(v), idx, d, s, M)
-            im = _apply_pass(jnp.imag(v), idx, d, s, M)
-            return jax.lax.complex(re, im).astype(v.dtype)
-        # f64: fall through to the legacy path (_lane_shuffle routes it
-        # to the exact XLA gather on TPU)
     pre = M // (d * s)
     x = v.reshape(pre, d, s)
     x = jnp.swapaxes(x, 1, 2).reshape(-1, 128)
@@ -715,69 +366,19 @@ class ShufflePlan:
     M: int = 0
     small: object = None      # tiny fallback: device scatter-order take
 
-    def _run_fusable(self, v):
-        """The 16384-tile pass-run fusion applies: 4-byte dtype, TPU
-        backend, tile-aligned slot count.  LIS_TPU_NO_FUSED_SMALL=1
-        disables it (diagnostic kill-switch)."""
-        import os
-        return (v.dtype.itemsize == 4 and self.M % 16384 == 0
-                and self.M >= 16384 and jax.default_backend() != "cpu"
-                and os.environ.get("LIS_TPU_NO_FUSED_SMALL") != "1")
-
     def apply(self, v):
         if self.small is not None:
             return jnp.take(v, self.small, axis=0)
         out = v
-        metas, idxs = self.meta, self.idxs
-        run = _small_run(metas) if self._run_fusable(v) else None
-        i = 0
-        while i < len(metas):
-            if run is not None and i == run[0]:
-                out = _fused_small32(out, idxs[i: run[1]],
-                                     [s for _, s in metas[i: run[1]]],
-                                     self.M)
-                i = run[1]
-                continue
-            (d, s), idx = metas[i], idxs[i]
+        for (d, s), idx in zip(self.meta, self.idxs):
             out = _apply_pass(out, idx, d, s, self.M)
-            i += 1
         return out
 
     def apply_rowsum(self, v, Kp: int):
-        """apply(v).reshape(M // Kp, Kp).sum(axis=1), with the final
-        pass fused with the row reduction on TPU (the routed array never
-        round-trips HBM).  Only meaningful for exact-holes plans, where
-        every hole slot provably carries a zero."""
-        if self.small is not None:
-            out = jnp.take(v, self.small, axis=0)
-            return out.reshape(-1, Kp).sum(axis=1)
-        out = v
-        metas, idxs = self.meta, self.idxs
-        run = _small_run(metas) if self._run_fusable(v) else None
-        last = len(metas) - 1
-        i = 0
-        while i < len(metas):
-            if run is not None and i == run[0]:
-                stop = run[1]
-                if (stop == len(metas) and Kp <= 128 and 128 % Kp == 0):
-                    # the fused run IS the tail: absorb the row sums too
-                    return _fused_small32(out, idxs[i: stop],
-                                          [s for _, s in metas[i: stop]],
-                                          self.M, Kp=Kp)
-                out = _fused_small32(out, idxs[i: stop],
-                                     [s for _, s in metas[i: stop]],
-                                     self.M)
-                i = stop
-                continue
-            (d, s), idx = metas[i], idxs[i]
-            if (i == last and d == 128 and s > 1 and s % Kp == 0
-                    and out.dtype.itemsize == 4
-                    and jax.default_backend() != "cpu"
-                    and _rowsum_tile(s, Kp) is not None):
-                return _fused_pass_rowsum32(out, idx, d, s, self.M, Kp)
-            out = _apply_pass(out, idx, d, s, self.M)
-            i += 1
-        return out.reshape(-1, Kp).sum(axis=1)
+        """apply(v).reshape(M // Kp, Kp).sum(axis=1).  Only meaningful
+        for exact-holes plans, where every hole slot provably carries a
+        zero."""
+        return self.apply(v).reshape(-1, Kp).sum(axis=1)
 
 jax.tree_util.register_pytree_node(
     ShufflePlan,
@@ -853,7 +454,7 @@ def plan_shuffle(perm: np.ndarray, M: int | None = None,
             raise AssertionError("shuffle routing produced a wrong plan")
     return _plan_cache_put(key, ShufflePlan(
         # lane indices are < 128: uint8 storage quarters the index
-        # traffic of every pass (kernels upcast to i32 in registers)
+        # traffic of every pass
         idxs=tuple(jnp.asarray(idx.astype(np.uint8)) for (_, _, idx)
                    in passes),
         meta=tuple((d, s) for (d, s, _) in passes), M=M))
@@ -864,3 +465,8 @@ def _plan_cache_put(key: bytes, plan: ShufflePlan) -> ShufflePlan:
         _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))    # FIFO eviction
     _PLAN_CACHE[key] = plan
     return plan
+
+
+def clear_plan_cache() -> None:
+    """Drop every memoised plan (and the device index arrays it holds)."""
+    _PLAN_CACHE.clear()

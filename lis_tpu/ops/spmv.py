@@ -4,12 +4,9 @@ The reference dispatches on A->matrix_type (src/matvec/lis_matvec.c:55-345);
 here dispatch is a method call on the format object.  These wrappers exist
 so solver code reads like the reference's three-call interface
 (lis_matvec / lis_matvech) and so format fast paths can be swapped in
-centrally.  There is deliberately NO hand-written Pallas SpMV kernel:
-the jnp DIA path already measures at 105% of the v5e HBM spec and the
-BES slab path at 91% (BENCH.md) — XLA's fusion is at the roofline, and
-the round-1 experimental manual-DMA kernel crashed the TPU worker
-(Mosaic legalization) without being faster.  Removal is the
-measurement-driven choice (VERDICT round 1, item 8).
+centrally.  There is no hand-written SpMV kernel: XLA's DIA SpMV streams
+the 27-point 216^3 operator at 3000 GB/s csr-equivalent on an H100, at
+the bandwidth of a plain copy in the same run (CHANGES.md).
 """
 
 from __future__ import annotations

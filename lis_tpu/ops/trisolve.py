@@ -5,14 +5,14 @@ Reference: lis_matrix_solve / lis_matrix_solveh dispatch
 lis_matrix_solve_csr (src/matrix/lis_matrix_csr.c:1525) with LOWER /
 UPPER / SSOR flags, where x[i] = (b[i] - Σ L[i,j]x[j]) · WD[i].
 
-A sequential row loop cannot run on the VPU, but the dependency DAG of a
+A sequential row loop cannot run data-parallel, but the dependency DAG of a
 triangular matrix decomposes into *levels* — rows whose in-level
 dependencies are empty — which is exactly the wavefront the reference's
 vector-machine heritage wants.  The plan is computed once on host at
 factor/split time (static per matrix); the device solve is a lax.scan over
 levels, each level one padded gather + multiply + scatter.  For stencil
-matrices the level count is O(n^(1/d)) with wide levels, so the VPU stays
-busy.
+matrices the level count is O(n^(1/d)) with wide levels, so each level
+is wide data-parallel work.
 
 The reference's own OpenMP path *relaxes* the dependencies across threads
 (lis_matrix_csr.c:1577-1605 skips out-of-block columns — block-Jacobi

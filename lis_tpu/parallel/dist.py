@@ -5,7 +5,7 @@ halo exchange (lis_matrix_g2l_csr src/matrix/lis_matrix_mpi.c:222,
 lis_commtable_create :594-828, lis_send_recv :834-955, transpose-reduce
 lis_reduce :959) and MPI_Allreduce in every dot/norm.
 
-TPU-native mapping (SURVEY.md §2.10):
+Mesh mapping (SURVEY.md §2.10):
 - rows block-partitioned over mesh axis "p", padded so every shard owns the
   same ``nlocal`` rows (static shapes for XLA);
 - SpMV: remote x segments arrive by one of three plans:
@@ -43,13 +43,8 @@ from lis_tpu.matrix.base import SparseMatrix, host
 
 
 def _shard_map(f, mesh, in_specs, out_specs):
-    try:
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except TypeError:
-        from jax.experimental.shard_map import shard_map as _sm
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_rep=False)
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +155,7 @@ jax.tree_util.register_pytree_node(
 
 @dataclasses.dataclass(frozen=True)
 class DistTableCSRMatrix(SparseMatrix):
-    """Block-row sharded CSR with a COMM-TABLE halo plan — the TPU
+    """Block-row sharded CSR with a COMM-TABLE halo plan — the
     analogue of the reference's lis_commtable_create / lis_send_recv
     (src/matrix/lis_matrix_mpi.c:594-828, :834-955): at distribute time
     the host computes, per shard and per shard-distance d, exactly which
@@ -416,8 +411,8 @@ class DistCSTMatrix(SparseMatrix):
     """Block-row sharded LOCALITY-FREE matrix: the comm-table halo plan
     (export/import ppermutes, boundary-proportional traffic) married to
     the per-shard CST compute kernel (matrix/cst.py) — each shard's local
-    block runs the gather- and scatter-free lane-shuffle SpMV over its
-    ghost-extended vector instead of the ~0.14 G elem/s jnp.take path.
+    block runs the gather- and scatter-free shuffle-plan SpMV over its
+    ghost-extended vector instead of a jnp.take gather.
     The reference analogue is lis_matvec_csr under MPI
     (src/matvec/lis_matvec_csr.c:53 per rank + lis_send_recv halo).
 
@@ -1079,7 +1074,7 @@ def dist_solve(A: DistCSRMatrix, b, mesh: Mesh, options=None, M=None,
         lambda a: a.astype(jnp.float32)
         if hasattr(a, "dtype") and a.dtype == jnp.float64 else a, t)
     if opts.precision == "single":
-        # TPU-native f32 distributed solve (true residual plateaus ~1e-7)
+        # f32 distributed solve (true residual plateaus ~1e-7)
         A, b, x0, M, aux = cast32((A, b, x0, M, aux))
     elif opts.precision in ("df", "switch_df", "quad", "switch"):
         from lis_tpu.core.ddreal import DD
@@ -1232,13 +1227,12 @@ def make_dist_jacobi(A, mesh: Mesh):
 
 @dataclasses.dataclass(frozen=True)
 class DistDIAMatrix(SparseMatrix):
-    """Block-row sharded DIA — the TPU-fast distributed operator.
+    """Block-row sharded DIA — the distributed stencil operator.
 
     Per shard the local view is (nnd, nlocal) diagonal streams; the halo is
     the two ring-neighbor slabs of width hw = max|offset| exchanged with
     ppermute, and each diagonal contributes by a dynamic slice of the
-    extended local x — no gathers anywhere (random gathers run at <1 GB/s
-    on TPU; diagonal streams run at the HBM roofline).  Out-of-range
+    extended local x — no gathers anywhere.  Out-of-range
     positions carry zero values (the DIA convention), so wrapped ring slabs
     at the global edges are harmlessly multiplied away."""
     value: tuple              # per-diagonal (p·nlocal,) arrays sharded P("p")
@@ -1361,8 +1355,13 @@ def distribute_dia(A, mesh: Mesh) -> DistDIAMatrix:
 
 
 def distribute_matrix(A, mesh: Mesh, halo: str = "auto"):
-    """TPU-first distributed layout choice: banded operators become sharded
-    DIA (stream SpMV over ring halos), everything else block-row CSR."""
+    """Distributed layout choice, by the same measured rates as the
+    single-device router (solvers/driver.auto_storage): banded operators
+    become sharded DIA (stream SpMV over ring halos), quasi-banded ones
+    DIA plus a comm-table CSR remainder, everything else block-row CSR.
+    The sharded slab (distribute_slabs) and CST (distribute_csr_cst)
+    layouts stay available by explicit choice: neither beat CSR on the
+    card."""
     from lis_tpu.matrix.convert import diag_profile, is_banded
     nlocal = -(-A.nrows // mesh.shape[AXIS])
     offs, _ = diag_profile(A)
@@ -1381,54 +1380,25 @@ def distribute_matrix(A, mesh: Mesh, halo: str = "auto"):
             return DistHybridMatrix(
                 dia=distribute_dia(H.dia, mesh),
                 rem=distribute_csr(H.rem, mesh, halo="table"))
-    # general sparsity: dense sliding slabs on the mesh (ring window
-    # halos) when the profile fits — same guards as auto_storage; the
-    # multi-window builder covers few-affine-band structures, each band
-    # sharded as its own DistBES part.  Like auto_storage's
-    # throughput-aware routing: a HIGH-blowup slab (csr-equiv rate
-    # ~750/blowup) yields to the per-shard CST layout when the CST grid
-    # profile accepts (rate ~150/blowup at blowup <= 6)
-    cst_ok = False
-    if halo == "auto" and A.nnz >= (1 << 18):
-        from lis_tpu.matrix.cst import CSTMatrix
-        try:
-            _p, _i, _ = A.to_csr_arrays()
-            _bl, _rf = CSTMatrix.profile(_p, _i, A.shape)
-            cst_ok = _bl <= 6.0 and _rf <= 0.02
-        except Exception:
-            cst_ok = False
-    from lis_tpu.matrix.bes import multi_bes_from_csr, BESMatrix
-    try:
-        bes = multi_bes_from_csr(*A.to_csr_arrays(), A.shape,
-                                 max_bytes=4 << 30)
-        rem_frac = (bes.rem.nnz / max(bes.nnz, 1)
-                    if bes.rem is not None else 0.0)
-        if (bes.fill_blowup <= 256 and rem_frac <= 0.1
-                and (bes.fill_blowup <= 16 or not cst_ok)):
-            if isinstance(bes, BESMatrix):
-                return distribute_bes(bes, mesh)
-            parts = [distribute_bes(p, mesh) for p in bes.parts]
-            rem = (None if bes.rem is None
-                   else distribute_csr(bes.rem, mesh, halo="table",
-                                       nlocal=parts[0].nlocal))
-            return DistMultiBESMatrix(tuple(parts), rem, bes.nrows,
-                                      parts[0].gn_pad, parts[0].nlocal,
-                                      parts[0].nprocs)
-    except Exception:
-        pass
-    # locality-free sparsity at scale: per-shard CST compute over the
-    # comm-table halo (gather/scatter-free lane-shuffle SpMV per shard;
-    # matrix/cst.py) — the jnp.take fallback below runs ~0.14 G elem/s
-    if halo == "auto" and A.nnz >= (1 << 18):
-        from lis_tpu.matrix.cst import CSTMatrix
-        try:
-            ptr, idx, val = A.to_csr_arrays()
-            blowup, rem_frac = CSTMatrix.profile(ptr, idx, A.shape)
-            if blowup <= 6.0 and rem_frac <= 0.02:
-                return distribute_csr_cst(A, mesh)
-        except Exception:
-            pass
     return distribute_csr(A, mesh, halo=halo)
+
+
+def distribute_slabs(A, mesh: Mesh):
+    """Shard a general matrix as dense sliding slabs with ring window
+    halos: one DistBESMatrix, or a DistMultiBESMatrix with one sharded
+    slab per affine band plus a comm-table CSR remainder."""
+    from lis_tpu.matrix.bes import multi_bes_from_csr, BESMatrix
+    bes = multi_bes_from_csr(*A.to_csr_arrays(), A.shape,
+                             max_bytes=4 << 30)
+    if isinstance(bes, BESMatrix):
+        return distribute_bes(bes, mesh)
+    parts = [distribute_bes(p, mesh) for p in bes.parts]
+    rem = (None if bes.rem is None
+           else distribute_csr(bes.rem, mesh, halo="table",
+                               nlocal=parts[0].nlocal))
+    return DistMultiBESMatrix(tuple(parts), rem, bes.nrows,
+                              parts[0].gn_pad, parts[0].nlocal,
+                              parts[0].nprocs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1865,8 +1835,8 @@ def distribute_bes(A, mesh: Mesh):
 
 @dataclasses.dataclass(frozen=True)
 class DistBESDDOperator:
-    """DD matvec over a sharded BES slab: accumulate in emulated f64
-    (elementwise-correct on TPU, tighter than the f32-pair 2^-48) and
+    """DD matvec over a sharded BES slab: accumulate in f64 (tighter
+    than the f32-pair 2^-48) and
     split back to the limb pair — the distributed twin of
     core.ddreal.DDBesOperator."""
     bes: object               # DistBESMatrix, slab cast to f64

@@ -3,7 +3,7 @@
 The reference's MPI behavior for ILU/SSOR is block-Jacobi: each rank
 factors and sweeps only its owned diagonal block (lis_precon_iluk.c — the
 fact loops run over local rows; the OpenMP tri-solve drops out-of-block
-columns, src/matrix/lis_matrix_csr.c:1577-1605).  The TPU equivalent:
+columns, src/matrix/lis_matrix_csr.c:1577-1605).  The mesh equivalent:
 extract each shard's diagonal block on host, factor it with the standard
 (single-chip) create functions, and stack the resulting level-scheduled
 plans with a leading shard axis so a P("p") in_spec hands every shard its
@@ -303,7 +303,7 @@ class DistSAAMGPrecon:
     sharded as :class:`DistAMGMidLevel` row slabs (matrix memory ∝ 1/p,
     vectors replicated), so the hierarchy no longer keeps a full replica
     per device; only the truly small tail is replicated — the
-    TPU-idiomatic choice: don't shard tiny work.
+    idiomatic choice: don't shard tiny work.
     """
 
     def __init__(self, A0, p_value, p_col, p_row, fwd, bwd, mids, coarse,

@@ -1,4 +1,4 @@
-"""Device-mesh helpers — the TPU replacement for MPI communicators.
+"""Device-mesh helpers — the replacement for MPI communicators.
 
 The reference's process model (ranks + MPI_COMM_WORLD, lis_initialize
 src/system/lis_init.c) maps to a 1-D ``jax.sharding.Mesh`` over all chips:
@@ -37,27 +37,23 @@ def nprocs(mesh: Mesh) -> int:
 
 
 def ensure_devices(n: int) -> int:
-    """Make sure at least n JAX devices are visible, re-initializing a
-    virtual CPU backend if needed (some sitecustomize setups rewrite
-    XLA_FLAGS at interpreter start, losing
-    --xla_force_host_platform_device_count).  Returns the visible device
-    count; raises if n cannot be provisioned."""
-    import os
-    if len(jax.devices()) >= n:
-        return len(jax.devices())
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + f" --xla_force_host_platform_device_count={n}")
-    try:
-        from jax._src import xla_bridge as _xb
-        _xb._backends.clear()
-        _xb._backend_errors.clear()
-        _xb._default_backend = None
-        jax.clear_caches()
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", n)
-    except Exception:
-        pass
+    """Make sure at least n JAX devices are visible and return the count.
+
+    On the CPU backend a short count is made up by re-initialising it
+    with n virtual devices (a test mesh).  Any other backend has the
+    devices it has: too few raises, and the backend is never switched."""
+    have = len(jax.devices())
+    if have >= n:
+        return have
+    if jax.devices()[0].platform != "cpu":
+        raise RuntimeError(
+            f"need {n} devices but the {jax.default_backend()} backend has "
+            f"{have}")
+    from jax._src import xla_bridge as _xb
+    _xb._clear_backends()
+    jax.clear_caches()
+    jax.config.update("jax_num_cpu_devices", n)
     got = len(jax.devices())
     if got < n:
-        raise RuntimeError(f"cannot provision {n} devices (have {got})")
+        raise RuntimeError(f"cannot provision {n} CPU devices (have {got})")
     return got

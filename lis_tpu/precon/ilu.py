@@ -5,7 +5,7 @@ Reference: lis_precon_iluk.c (symbolic fact :263, numeric :638, psolve
 lis_precon_iluc.c (Crout with drop/growth params, :67).  Options: -ilu_fill
 (level-of-fill, default 0), -iluc_drop (0.05), -iluc_rate (5.0).
 
-TPU split mirrors the reference's MPI behavior: factorization is a local
+The split mirrors the reference's MPI behavior: factorization is a local
 (block-Jacobi) operation on owned rows (the reference factors only the
 local diagonal block under MPI), done host-side at create; the apply is two
 level-scheduled triangular solves on device.  Host factorization is the
@@ -304,8 +304,8 @@ def _plans_from_lu(lp, li, lv, up, ui, uv, udiag, n, shape):
 @precon_pytree
 class ILUDiaPrecon:
     """ILU(0) factors of a DIA-structured matrix, applied by Jacobi-relaxed
-    sweeps of diagonal streams — the TPU fast path (level-scheduled
-    triangular solves are gather-bound; the reference's own OpenMP
+    sweeps of diagonal streams — the DIA path (level-scheduled
+    triangular solves gather; the reference's own OpenMP
     tri-solve already relaxes cross-thread dependencies,
     src/matrix/lis_matrix_csr.c:1577-1605).  ILU(0) preserves the sparsity
     pattern, so the factors of a DIA matrix are DIA with the same offsets.
@@ -441,7 +441,7 @@ class BlockILUPrecon:
     :1670 (numeric, block ops via lis_array_matmat/lis_array_ge), psolve
     :1990.  The apply is two level-scheduled scalar triangular solves on
     the block-expanded unit factors plus one batched (nr,bnr,bnr) block
-    D⁻¹ einsum between them — MXU work instead of the reference's scalar
+    D⁻¹ einsum between them — batched dense work instead of the reference's scalar
     per-block loops."""
     lower: TriSolvePlan       # expanded L̃ (unit diag)
     upper: TriSolvePlan       # expanded Ũ = D⁻¹U (unit diag)

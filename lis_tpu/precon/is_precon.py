@@ -3,7 +3,7 @@
 Reference: lis_precon_is.c — for Krylov outer solvers the apply is
 y = x - α·S_m x where S_m keeps only the first m+1 entries of each row of
 the strictly-upper part U (lis_psolve_is :417-459; α = -is_alpha,
-m = -is_m).  One truncated SpMV on the VPU.  (The reference's alternate
+m = -is_m).  One truncated SpMV.  (The reference's alternate
 path for stationary outer solvers, which rebuilds the system as (I+S)A,
 is a system transformation rather than a psolve and is not reproduced.)
 """

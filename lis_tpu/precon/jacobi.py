@@ -2,8 +2,8 @@
 
 Reference: lis_precon_create_jacobi / lis_psolve_jacobi
 (src/precon/lis_precon_jacobi.c:61,89) — z = D⁻¹ r, with an
-inverted-block-diagonal version for BSR (:221,255).  On TPU the point
-version is one VPU multiply; the block version is a batched small matvec
+inverted-block-diagonal version for BSR (:221,255).  The point version
+is one elementwise multiply; the block version is a batched small matvec
 against the pre-inverted (nb, b, b) diagonal blocks.
 """
 
@@ -39,7 +39,8 @@ class BlockJacobiPrecon:
         nb, bs, _ = self.binv.shape
         pad = nb * bs - r.shape[0]
         rp = jnp.pad(r, (0, pad)) if pad else r
-        z = jnp.einsum("kij,kj->ki", self.binv, rp.reshape(nb, bs))
+        z = jnp.einsum("kij,kj->ki", self.binv, rp.reshape(nb, bs),
+                       precision="highest")
         return z.reshape(-1)[: r.shape[0]]
 
     def psolveh(self, r):
@@ -47,7 +48,8 @@ class BlockJacobiPrecon:
         pad = nb * bs - r.shape[0]
         rp = jnp.pad(r, (0, pad)) if pad else r
         b = jnp.conj(self.binv) if jnp.iscomplexobj(self.binv) else self.binv
-        z = jnp.einsum("kji,kj->ki", b, rp.reshape(nb, bs))
+        z = jnp.einsum("kji,kj->ki", b, rp.reshape(nb, bs),
+                       precision="highest")
         return z.reshape(-1)[: r.shape[0]]
 
 

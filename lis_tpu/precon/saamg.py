@@ -8,12 +8,12 @@ Gauss-Seidel smoothing and a direct coarsest solve
 (v_cycle_ssi_amg / sgs / ll_slv, lis_m_solver_AMGCG.F90:50+).
 Options: -saamg_theta (strength threshold, 0.05), -saamg_unsym.
 
-TPU design: the irregular graph work (strength-of-connection, greedy
+Design: the irregular graph work (strength-of-connection, greedy
 aggregation, RAP) runs once on host with scipy; each level becomes a
 static pytree (CSR operator + prolongator + SGS trisolve plans), and the
 V-cycle unrolls over the static level list inside jit — per level it is
 SpMV + two level-scheduled triangular sweeps, all device-resident.  The
-coarsest level applies a precomputed dense inverse on the MXU.
+coarsest level applies a precomputed dense inverse.
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ class SAAMGPrecon:
     levels: tuple             # tuple[AMGLevel]
     coarse_inv: jax.Array     # dense inverse of the coarsest operator
     smoother: str = "sgs"     # "sgs" (reference parity) | "jacobi"
-                              # (pure streams — TPU-fast at scale, where
-                              # level-scheduled trisolves gather)
+                              # (pure streams, where level-scheduled
+                              # trisolves gather)
 
     def _gs(self, level, b, lower, nsweeps=2):
         """One (relaxed) Gauss-Seidel half-sweep solve (D+T)x = b: exact
@@ -91,7 +91,7 @@ class SAAMGPrecon:
 
     def _cycle(self, lev: int, b):
         if lev == len(self.levels):
-            return self.coarse_inv @ b
+            return jnp.matmul(self.coarse_inv, b, precision="highest")
         level = self.levels[lev]
         x = self._presmooth(level, b)
         # coarse-grid correction
@@ -142,7 +142,7 @@ class SAAMGPrecon:
 
     def _cycle_h(self, lev: int, b):
         if lev == len(self.levels):
-            return self.coarse_inv.T @ b
+            return jnp.matmul(self.coarse_inv.T, b, precision="highest")
         level = self.levels[lev]
         x = self._presmooth_h(level, b)
         r = b - level.A.matvech(x)
@@ -218,14 +218,14 @@ def _strength(A: sp.csr_matrix, theta: float) -> sp.csr_matrix:
 # Lattice (structured) fast path
 #
 # The reference's aggregation on a lexicographic stencil operator produces
-# geometric blobs; on TPU the winning formulation is to RECOGNISE the
+# geometric blobs; the streaming formulation is to RECOGNISE the
 # lattice (dims recovered from the band offsets) and aggregate by 3x index
 # boxes per dimension.  The tentative prolongator then never materialises:
 # Pt x = broadcast (repeat 3x per dim, crop), Ptᵀ r = box-sum (pad,
 # reshape, sum) — pure HBM streams — and the smoothed prolongator applies
 # implicitly as P = (I - ω D⁻¹A) Pt, i.e. ONE fast fine-level matvec plus
 # a stream.  This is what makes the V-cycle run at DIA-matvec speed
-# instead of gather speed (the round-2 330 ms/iter bottleneck).
+# instead of gather speed.
 # ---------------------------------------------------------------------------
 
 def detect_lattice(A_csr: sp.csr_matrix, max_band: int = 13):
@@ -521,18 +521,20 @@ def create_saamg(A, opts):
         strided BES covers them gather-free (e.g. exactly 3 windows for
         an aggregated 3-D operator); CSR fallback when the profile is
         too scattered."""
-        from lis_tpu.matrix.bes import multi_bes_from_csr
+        from lis_tpu.matrix.bes import (multi_bes_from_csr, GATHER_NS,
+                                        SLAB_NS_PER_SLOT)
         try:
             # a 3-D fine stencil puts the prolongator's columns in up to
             # 9 affine bands (3 z-planes x 3 y-rows) — give the greedy
             # builder enough windows to find them all.  Acceptance is a
-            # cost comparison: slab slots stream ~1300x faster than
-            # gathers, so even heavy padding beats the CSR fallback.
+            # cost comparison per entry against the CSR fallback, at the
+            # per-element costs of matrix/bes.py's window model
             bp = multi_bes_from_csr(m.indptr, m.indices, m.data, m.shape,
                                     max_windows=12, max_bytes=2 << 30)
             rem_frac = (bp.rem.nnz / max(bp.nnz, 1)
                         if bp.rem is not None else 0.0)
-            if bp.fill_blowup <= 512 and rem_frac <= 0.2:
+            if (bp.fill_blowup * SLAB_NS_PER_SLOT + rem_frac * GATHER_NS
+                    < GATHER_NS):
                 return bp
         except Exception:
             pass

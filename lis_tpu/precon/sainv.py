@@ -4,8 +4,8 @@ Reference: lis_precon_create_sainv (src/precon/lis_precon_sainv.c:59,
 factorisation :~100-700) and lis_psolve_sainv (:735): M⁻¹ = Z D⁻¹ Wᴴ from
 A-biconjugation with post-dropping (drop tolerance -sainv_drop, 0.05).
 
-The apply is two sparse SpMVs + a diagonal scale — ideal for TPU (an
-approximate inverse needs no triangular solves at all).  The biconjugation
+The apply is two sparse SpMVs + a diagonal scale (an approximate inverse
+needs no triangular solves at all).  The biconjugation
 runs on host at create, SPARSE and right-looking like the reference's: at
 step i only the columns j>i where (A·Z_i)_j or (W_iᵀ·A)_j is nonzero are
 touched, and update-term entries below -sainv_drop are discarded — O(nnz)

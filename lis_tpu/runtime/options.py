@@ -44,14 +44,14 @@ ESOLVER_IDS = {name: i + 1 for i, name in enumerate(ESOLVER_NAMES)}
 STORAGE_NAMES = {name: i + 1 for i, name in enumerate(
     ["csr", "csc", "msr", "dia", "ell", "jad", "bsr", "bsc", "vbr", "coo",
      "dns",
-     # TPU-native extensions beyond the reference's 11 formats
+     # extensions beyond the reference's 11 formats
      "hdi", "bes", "css", "cst"])}
 
 PRINT_NAMES = {"none": 0, "mem": 1, "out": 2, "all": 3}
 SCALE_NAMES = {"none": 0, "jacobi": 1, "symm_diag": 2}
 CONV_COND_NAMES = {"nrm2_r": 0, "nrm2_b": 1, "nrm1_b": 2}
 PRECISION_NAMES = {"double": 0, "quad": 1, "switch": 2,
-                   # TPU-native extensions: f32 and f32-pair double-float
+                   # extensions: f32 and f32-pair double-float
                    "single": 3, "df": 4, "switch_df": 5}
 TRUEFALSE = {"false": 0, "true": 1, "0": 0, "1": 1}
 
@@ -73,7 +73,7 @@ class SolverOptions:
     omega: float = 1.9              # -omega (SOR)
     ssor_omega: float = 1.0         # -ssor_omega
     ssor_sweeps: int = 2            # -ssor_sweeps (relaxed-sweep count on
-                                    #  the TPU DIA fast path; extension)
+                                    #  the DIA path; extension)
     ilu_fill: int = 0               # -ilu_fill
     ilu_relax: float = 1.0          # -ilu_relax
     is_alpha: float = 1.0           # -is_alpha
@@ -103,7 +103,7 @@ class SolverOptions:
     switch_maxiter: int = -1        # -switch_maxiter
     use_at: bool = False            # -use_at (explicit Aᵀ for BiCG family)
     storage: int = 0                # -storage (0 = auto: DIA for banded)
-    auto_storage: bool = True       # -auto_storage (TPU-first DIA routing)
+    auto_storage: bool = True       # -auto_storage (measured-rate routing)
     reorder: str = "none"           # -reorder {none|rcm}: solve P A Pt
     storage_block: int = 2          # -storage_block
     irestart: int = 2               # -irestart (IDR(s) shadow dim)
@@ -326,7 +326,7 @@ def _show_help(obj):
 
 def _show_version(obj):
     import lis_tpu
-    print(f"lis_tpu {lis_tpu.__version__} (Lis-compatible TPU framework)")
+    print(f"lis_tpu {lis_tpu.__version__} (Lis-compatible JAX framework)")
 
 
 _FLAG_ACTIONS = {"-h": _show_help, "-ver": _show_version}

@@ -1,7 +1,7 @@
 """BiCG and BiCR (reference: src/solver/lis_solver_bicg.c:138,788).
 
 BiCG walks A and Aᴴ simultaneously (the transpose SpMV reduces with a
-scatter-add — the TPU analogue of the reference's lis_reduce transpose
+scatter-add — the analogue of the reference's lis_reduce transpose
 communication); BiCR is its conjugate-residual twin.  Shadow residual
 r̃₀ = conj(r₀) (lis_solver_set_shadowresidual default LIS_RESID,
 src/solver/lis_solver.c:1816).

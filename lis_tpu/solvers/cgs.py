@@ -2,7 +2,7 @@
 
 Reference: lis_cgs (src/solver/lis_solver_cgs.c:134) and lis_crs (:805).
 Both avoid Aᴴ in the loop (CRS applies it once at setup to form the shadow
-vector), which on TPU means the iteration is pure gather/segment-sum SpMV —
+vector), which means the iteration is pure gather/segment-sum SpMV —
 no scatter-adds — at the price of squared residual polynomials.
 """
 

@@ -5,7 +5,7 @@ Reference: lis_gmres (src/solver/lis_solver_gmres.c:135) and lis_fgmres
 and on-the-fly Givens rotations; restart m default 40
 (src/solver/lis_solver.c:246).
 
-TPU design: the Krylov basis lives as a (m+1, n) matrix on device; the MGS
+Design: the Krylov basis lives as a (m+1, n) matrix on device; the MGS
 and rotation loops are masked fori_loops inside one jitted outer
 while_loop (restart cycles), and the small Hessenberg solve at each restart
 is a padded dense triangular solve — no host round-trips, no dynamic
@@ -102,9 +102,9 @@ def _gmres_core(A, b, x0, M, spec: SolverSpec, flexible: bool) -> SolverOutput:
         y = jnp.where(valid, y, 0.0)
 
         if flexible:
-            dx = Z.T @ y[: Z.shape[0]]
+            dx = jnp.matmul(Z.T, y[: Z.shape[0]], precision="highest")
         else:
-            dx = M.psolve(V[:m].T @ y)
+            dx = M.psolve(jnp.matmul(V[:m].T, y, precision="highest"))
         x = x + dx
         r = b - A.matvec(x)
         return dict(x=x, r=r, it=it, nrm=nrm, rh=rh,

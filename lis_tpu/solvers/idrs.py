@@ -50,10 +50,15 @@ def prepare_idr1(A, spec):
     return jnp.asarray(_shadow_space(1, A.nrows, np.float64))
 
 
+def _mm(a, b):
+    """a @ b at full f32 accuracy (a GPU may otherwise use TF32)."""
+    return jnp.matmul(a, b, precision="highest")
+
+
 def _pmat(P, vec, axis_name):
     """P @ vec with a psum over the sharded vector axis (the s shadow dots
     are global reductions, like every other dot)."""
-    local = P @ vec
+    local = jnp.matmul(P, vec, precision="highest")
     if axis_name is None:
         return local
     return jax.lax.psum(local, axis_name)
@@ -104,7 +109,7 @@ def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
 
     def step(st):
         c = jnp.linalg.solve(st["Mmat"], st["m"])
-        vvec = st["r"] - c @ st["dR"]
+        vvec = st["r"] - _mm(c, st["dR"])
         refresh = (st["it"] % (s + 1)) == s
         av = M.psolve(vvec)
 
@@ -112,12 +117,12 @@ def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
             t = A.matvec(av)
             h = v.dot(t, t, spec.axis_name)
             om = v.dot(t, vvec, spec.axis_name) / jnp.where(h == 0, one, h)
-            dx = om * av - c @ st["dX"]
-            dr = -om * t - c @ st["dR"]
+            dx = om * av - _mm(c, st["dX"])
+            dr = -om * t - _mm(c, st["dR"])
             return dx, dr, om
 
         def do_normal(_):
-            dx = st["om"] * av - c @ st["dX"]
+            dx = st["om"] * av - _mm(c, st["dX"])
             dr = -A.matvec(dx)
             return dx, dr, st["om"]
 

@@ -48,10 +48,10 @@ def _stationary(A, b, x0, M, spec, apply_w):
 
 
 class _LowerSweep:
-    """(D/w + L)⁻¹ by Jacobi-relaxed diagonal-stream sweeps — the TPU fast
-    path for DIA operators (exact level-scheduled solves gather at
-    <1 GB/s; the reference's own OpenMP tri-solve relaxes dependencies
-    the same way, lis_matrix_csr.c:1577-1605)."""
+    """(D/w + L)⁻¹ by Jacobi-relaxed diagonal-stream sweeps — the path
+    for DIA operators (exact level-scheduled solves gather row by row;
+    the reference's own OpenMP tri-solve relaxes dependencies the same
+    way, lis_matrix_csr.c:1577-1605)."""
 
     def __init__(self, L, wd, nsweeps=3):
         self.L = L

@@ -19,14 +19,11 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 
 import jax
 
-# LIS_TEST_TPU=1 leaves the real backend in place for the on-chip tier
-# (`LIS_TEST_TPU=1 pytest -m tpu`); everything else runs on the virtual
-# 8-device CPU mesh.  x64 stays off on chip (TPUs have no f64 units; the
-# package's double paths ride DD limb pairs there).
-_TPU_TIER = os.environ.get("LIS_TEST_TPU") == "1"
-if not _TPU_TIER:
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+# the CLIs turn on the persistent compile cache; test workers share a
+# checkout, so they keep to their in-memory caches
+jax.config.update("jax_enable_compilation_cache", False)
 
 import numpy as np
 import pytest
@@ -39,14 +36,9 @@ _SLOW_MODULES = {"test_dist", "test_quad", "test_all_solvers"}
 
 
 def pytest_collection_modifyitems(config, items):
-    on_tpu = _TPU_TIER and jax.default_backend() not in ("cpu",)
-    skip_tpu = pytest.mark.skip(
-        reason="tpu tier: needs LIS_TEST_TPU=1 and a TPU backend")
     for item in items:
         if item.module.__name__.rsplit(".", 1)[-1] in _SLOW_MODULES:
             item.add_marker(pytest.mark.slow)
-        if "tpu" in item.keywords and not on_tpu:
-            item.add_marker(skip_tpu)
 
 
 @pytest.fixture(scope="session")

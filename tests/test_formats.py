@@ -105,8 +105,8 @@ def test_registry_covers_all_lis_formats():
 
 
 def test_hybrid_hdi_format():
-    """HDI (dominant diagonals + gather remainder — TPU-first extension):
-    exact matvec/matvech, auto-routing for quasi-banded operators."""
+    """HDI (dominant diagonals + CSR remainder — an extension): exact
+    matvec/matvech, auto-routing for quasi-banded operators."""
     import scipy.sparse as sp
     from lis_tpu.matrix.hybrid import HybridMatrix
     from lis_tpu.solvers.driver import auto_storage
@@ -125,22 +125,20 @@ def test_hybrid_hdi_format():
     a2 = sp.csr_matrix((np.asarray(v2), np.asarray(i2), np.asarray(p2)),
                        shape=a.shape)
     assert abs(a2 - a).max() < 1e-14
-    # dense (fully random) SMALL matrices route to bes (windows cover
-    # the whole matrix cheaply); LARGE scatter-dominated ones, where the
-    # slab blowup guard rejects, stay on the csr gather path
-    import lis_tpu
+    # general sparsity goes to CSS when its chunk grid is dense enough
+    # to beat CSR at the measured rates (driver._css_wins): a fully
+    # random matrix packs its single column chunk at fill ~1
     from lis_tpu.matrix.csr import CSRMatrix
     r = sp.random(100, 100, density=0.2, random_state=1).tocsr()
     r.sort_indices()
     R = CSRMatrix.from_csr_arrays(r.indptr, r.indices, r.data, r.shape)
-    assert auto_storage(R).format_name == "bes"
+    assert auto_storage(R).format_name == "css"
     big = sp.random(3000, 3000, density=0.001, random_state=2).tocsr()
     big = big + sp.eye(3000, format="csr")
     big = big.tocsr(); big.sort_indices()
     Rb = CSRMatrix.from_csr_arrays(big.indptr, big.indices, big.data,
                                    big.shape)
-    # locality-free sparsity (no band): the chunk-sorted select-stream
-    # format replaces the gather-CSR last resort (round-3 fast path)
+    # locality-free sparsity (no band): CSS, measured faster than CSR
     assert auto_storage(Rb).format_name == "css"
 
 
@@ -193,8 +191,9 @@ def test_bes_general_sparsity_and_rcm():
 
 
 def test_bes_auto_storage_routing():
-    """auto_storage falls through DIA/HDI to BES for general matrices with
-    a usable displacement profile."""
+    """auto_storage falls through DIA/HDI for a banded-ish matrix with
+    many distinct offsets.  BES can hold it, but BES never beat CSS on
+    the card, so the router picks CSS (or CSR) — never BES."""
     import scipy.sparse as sp
     from lis_tpu.solvers.driver import auto_storage
     from lis_tpu.matrix.csr import CSRMatrix
@@ -212,16 +211,20 @@ def test_bes_auto_storage_routing():
     m = m + sp.diags(np.abs(m).sum(axis=1).A1 + 1)
     m = m.tocsr(); m.sort_indices()
     A = CSRMatrix.from_csr_arrays(m.indptr, m.indices, m.data, (n, n))
+    B = convert_matrix(A, "bes")
+    assert isinstance(B, BESMatrix)
     routed = auto_storage(A)
-    assert isinstance(routed, BESMatrix), type(routed)
+    assert routed.format_name == "css", routed.format_name
     x = rng.standard_normal(n)
-    np.testing.assert_allclose(np.asarray(routed.matvec(jnp.asarray(x))),
-                               m @ x, atol=1e-10)
+    for M in (B, routed):
+        np.testing.assert_allclose(np.asarray(M.matvec(jnp.asarray(x))),
+                                   m @ x, atol=1e-10)
 
 
 def test_multibes_auto_routing_two_bands():
-    """A general matrix with TWO affine column bands routes to the
-    multi-window BES (mbes) and solves end-to-end in every precision
+    """A general matrix with TWO affine column bands is representable as
+    a multi-window BES (mbes), but the router keeps it on CSR (its CSS
+    grid is too uneven to win); it solves end-to-end in every precision
     mode, including through the scale paths."""
     import scipy.sparse as sp
     import lis_tpu
@@ -240,12 +243,15 @@ def test_multibes_auto_routing_two_bands():
     m = (m + sp.diags(np.abs(m).sum(axis=1).A1 + 1)).tocsr()
     m.sort_indices()
     A = CSRMatrix.from_csr_arrays(m.indptr, m.indices, m.data, m.shape)
+    from lis_tpu.matrix.bes import multi_bes_from_csr
+    mb = multi_bes_from_csr(m.indptr, m.indices, m.data, m.shape)
+    assert mb.format_name == "mbes" and len(mb.parts) >= 2
     routed = auto_storage(A)
-    assert routed.format_name == "mbes", routed.format_name
-    assert len(routed.parts) >= 2
+    assert routed.format_name == "csr", routed.format_name
     x = rng.standard_normal(n)
-    np.testing.assert_allclose(np.asarray(routed.matvec(jnp.asarray(x))),
-                               m @ x, atol=1e-10)
+    for M in (mb, routed):
+        np.testing.assert_allclose(np.asarray(M.matvec(jnp.asarray(x))),
+                                   m @ x, atol=1e-10)
     xs = np.linspace(1, 2, n)
     b = m @ xs
     for f, bound in (("double", 1e-7), ("switch_df", 1e-11)):
@@ -273,7 +279,7 @@ def test_css_profile_matches_built_matrix():
 
 def test_vbr_uniform_partition_bsr_delegate():
     """A uniform square VBR partition is exactly a BSR: matvec/matvech
-    route through the BSR windowed slabs (MXU path) with identical
+    route through the BSR windowed slabs (einsum path) with identical
     results; non-uniform partitions keep the scalar view (fast=None)."""
     from lis_tpu.matrix.vbr import VBRMatrix
     import scipy.sparse as sp
@@ -330,41 +336,40 @@ def test_cst_locality_free_exact():
     assert abs(b - want).max() < 1e-12
 
 
-def test_fused_small_run_interpret():
-    """_fused_small32 (the one-kernel run of tile-local Benes passes,
-    ops/shuffle.py) in pallas interpret mode vs the numpy oracle — the
-    CPU-side pin for the TPU pass-run fusion; the chip tier re-runs it
-    compiled (experiments/chip_smoke.py)."""
+@pytest.mark.parametrize("Kp", [2, 4, 32, 128])
+def test_plan_apply_rowsum(Kp):
+    """ShufflePlan.apply and apply_rowsum on an exact-holes plan vs the
+    numpy oracle apply_host, across ELL widths Kp (ops/shuffle.py)."""
+    import jax
     from lis_tpu.ops import shuffle as sh
-    rng = np.random.default_rng(9)
-    M = 1 << 15
-    ss = [128, 1, 128]
-    passes = [(128, s,
-               np.argsort(rng.random((M // 128, 128)),
-                          axis=1).astype(np.int32)) for s in ss]
-    x = rng.standard_normal(M).astype(np.float32)
-    want = sh.apply_host(passes, x, M)
-    idxs = [jnp.asarray(p[2].astype(np.uint8)) for p in passes]
-    got = sh._fused_small32(jnp.asarray(x), idxs, ss, M, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), want)
-    for Kp in (2, 128):
-        gotr = sh._fused_small32(jnp.asarray(x), idxs, ss, M, Kp=Kp,
-                                 interpret=True)
-        np.testing.assert_allclose(np.asarray(gotr),
-                                   want.reshape(-1, Kp).sum(axis=1),
-                                   rtol=1e-5, atol=1e-5)
-    # dispatch: the run detector finds the tile-local window
-    meta = ((128, 16384), (128, 128), (128, 1), (128, 128), (128, 16384))
-    assert sh._small_run(meta) == (1, 4)
-    assert sh._small_run(((128, 16384),)) is None
+    rng = np.random.default_rng(5)
+    M = 1 << 16
+    nreal = M // 2
+    src = rng.choice(M, size=nreal, replace=False).astype(np.int64)
+    dst = rng.choice(M, size=nreal, replace=False).astype(np.int64)
+    perm = np.full(M, -1, dtype=np.int64)
+    perm[src] = dst
+    plan = sh.plan_shuffle(perm, exact_holes=True, validate=False)
+    assert plan.small is None and len(plan.meta) > 1
+    passes = [(d, s, np.asarray(i).astype(np.int64))
+              for (d, s), i in zip(plan.meta, plan.idxs)]
+    v = np.zeros(M)
+    v[src] = rng.standard_normal(nreal)
+    want = sh.apply_host(passes, v, M)
+    np.testing.assert_array_equal(want[dst], v[src])
+    got = np.asarray(jax.jit(plan.apply)(jnp.asarray(v)))
+    np.testing.assert_array_equal(got, want)
+    gotr = np.asarray(jax.jit(lambda t: plan.apply_rowsum(t, Kp))(
+        jnp.asarray(v)))
+    np.testing.assert_allclose(gotr, want.reshape(-1, Kp).sum(axis=1),
+                               rtol=1e-13, atol=1e-13)
 
 
 def test_auto_storage_prefers_cst_over_slow_bes():
-    """Throughput-aware routing (round 5): a wide scattered band is
-    BES-representable but at a huge fill blowup (csr-equiv ~750/blowup
-    GB/s), while the CST grid sits at blowup ~2 (~75 GB/s measured,
-    BENCH.md).  auto_storage must pick CST, not the first format that
-    merely fits."""
+    """Throughput-aware routing: a wide scattered band is representable
+    as BES (at a high fill) and as CST, but neither beat CSR on the card;
+    auto_storage picks CSS, whose estimated rate does (driver._css_wins),
+    not the first format that merely fits."""
     import scipy.sparse as sp
     from lis_tpu.solvers.driver import auto_storage
     from lis_tpu.matrix.csr import CSRMatrix
@@ -378,23 +383,30 @@ def test_auto_storage_prefers_cst_over_slow_bes():
     m.sum_duplicates()
     m.sort_indices()
     A = CSRMatrix.from_csr_arrays(m.indptr, m.indices, m.data, m.shape)
+    # a CST grid fits once its ELL width coarsens the bucket grid
+    assert any(b <= 6.0 and sp_ <= 0.02 for b, sp_ in (
+        CSTMatrix.profile(m.indptr, m.indices, m.shape, Kp=kp)
+        for kp in (32, 64, 128, 256)))
     routed = auto_storage(A)
-    assert isinstance(routed, CSTMatrix), type(routed)
+    assert routed.format_name == "css", routed.format_name
     x = rng.standard_normal(n)
     got = np.asarray(routed.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(got, m @ x, rtol=1e-10, atol=1e-8)
 
 
 def test_cst_lazy_transpose_routing():
-    """auto_storage builds the CST transpose grid only for solvers that
-    apply A^H every iteration (bicg/bicr) — CG-class solves skip it
-    (half the build), the scatter matvech fallback stays exact, and a
-    later bicg solve on the same matrix upgrades the cached grid."""
+    """A CST built without its transpose grid applies A^H through the
+    exact scatter fallback.  auto_storage builds the routed CSS's
+    transpose grid only for solvers that apply A^H every iteration
+    (bicg/bicr) — CG-class solves skip it (half the build), its scatter
+    matvech stays exact, and a later bicg solve on the same matrix
+    upgrades the cached grid."""
     import scipy.sparse as sp
     import lis_tpu
     from lis_tpu.solvers.driver import auto_storage
     from lis_tpu.matrix.csr import CSRMatrix
     from lis_tpu.matrix.cst import CSTMatrix
+    from lis_tpu.matrix.css import CSSMatrix
     rng = np.random.default_rng(5)
     n, k = 1 << 15, 10
     rows = np.repeat(np.arange(n), k)
@@ -404,13 +416,18 @@ def test_cst_lazy_transpose_routing():
     a = (a + a.T + sp.eye(n) * (4 * k)).tocsr()
     a.sort_indices()
     A = CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
-    routed = auto_storage(A, need_at=False)
-    assert isinstance(routed, CSTMatrix) and routed.at is None
     x = np.random.default_rng(1).standard_normal(n)
+    C = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
+                                  transpose=False)
+    assert C.at is None
+    np.testing.assert_allclose(np.asarray(C.matvech(x)), a.T @ x,
+                               rtol=1e-12, atol=1e-10)
+    routed = auto_storage(A, need_at=False)
+    assert isinstance(routed, CSSMatrix) and routed.at is None
     np.testing.assert_allclose(np.asarray(routed.matvech(x)), a.T @ x,
                                rtol=1e-12, atol=1e-10)
     r = lis_tpu.solve(A, np.ones(n), options="-i bicgstab -tol 1e-10")
     assert r.status == lis_tpu.LIS_SUCCESS
     up = auto_storage(A, need_at=True)      # cache upgrade
-    assert isinstance(up, CSTMatrix) and up.at is not None
+    assert isinstance(up, CSSMatrix) and up.at is not None
     assert A._auto_dia.at is not None

@@ -82,7 +82,7 @@ PRECON_REFERENCE_ITERS = {
 @pytest.mark.parametrize("p", sorted(PRECON_REFERENCE_ITERS))
 def test_precon_iteration_parity(testmat, p):
     """-auto_storage false keeps the exact level-scheduled triangular
-    apply (the default TPU relaxed-sweep apply trades a few extra cheap
+    apply (the default relaxed-sweep apply trades a few extra cheap
     iterations for stream-speed psolves; -ssor_sweeps 6 recovers the
     exact counts there too)."""
     b = np.ones(testmat.nrows)
@@ -266,7 +266,7 @@ def test_generalized_eigensolver_parity(testmat):
 def test_hpcg_kernel_parity():
     """hpcg_kernel flow (test3b 32 32 32: CG + SSOR + additive Schwarz on
     the 27-pt operator) against the built reference: 31 iterations —
-    iteration-EXACT with the exact triangular apply, +1 with the TPU
+    iteration-EXACT with the exact triangular apply, +1 with the
     relaxed-sweep apply."""
     import jax.numpy as jnp
     from lis_tpu.utils.testmat import poisson3d27

@@ -220,7 +220,7 @@ def test_saamg_hpcg_operator_coarsens():
 
 def test_saamg_jacobi_smoother():
     """-saamg_smoother jacobi: weighted-Jacobi V-cycle smoothing (pure
-    streams — the TPU-fast alternative to level-scheduled SGS at scale);
+    streams — the stream alternative to level-scheduled SGS at scale);
     slightly more iterations, same convergence class."""
     from lis_tpu.utils.testmat import poisson3d27
     A = poisson3d27(12, 12, 12)

@@ -101,7 +101,7 @@ def test_quad_gmres_beats_double_accuracy():
 
 
 def test_df_matches_double_accuracy():
-    """-f df (f32-pair double-float, the TPU-native extended precision):
+    """-f df (f32-pair double-float, the f32-limb extended precision):
     solution accuracy matches -f double on the same problem."""
     a = poisson2d(20, 20)
     xs = np.linspace(1, 2, 400)
